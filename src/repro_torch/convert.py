@@ -1,0 +1,73 @@
+"""State carried between the JAX package and the port, as numpy arrays.
+
+``graph_from_numpy`` takes the reference ``KNNGraph`` fields as numpy arrays
+(``{name: np.asarray(field)}``) and gives the port's graph;
+``graph_to_numpy`` goes the other way; ``build_config_from_dict`` carries a
+reference ``BuildConfig.__dict__``.  Nothing here imports the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.construct import BuildConfig
+from repro_torch.core.graph import KNNGraph
+
+_DTYPES = {
+    "nbr_ids": torch.int32,
+    "nbr_dist": torch.float32,
+    "nbr_lam": torch.int32,
+    "rev_ids": torch.int32,
+    "rev_lam": torch.int32,
+    "rev_ptr": torch.int32,
+    "alive": torch.bool,
+    "sq_norms": torch.float32,
+    "row_scale": torch.float32,
+}
+
+
+def graph_from_numpy(fields: dict, device="cpu") -> KNNGraph:
+    """Reference graph fields (numpy) -> the port's ``KNNGraph``."""
+    kw = {
+        name: torch.as_tensor(np.asarray(fields[name])).to(device=device, dtype=dt)
+        for name, dt in _DTYPES.items()
+    }
+    return KNNGraph(n_valid=int(fields["n_valid"]), **kw)
+
+
+def graph_to_numpy(g: KNNGraph) -> dict:
+    """The port's graph -> {field: numpy array}, ``n_valid`` as an int32
+    scalar like the reference's."""
+    out = {name: getattr(g, name).cpu().numpy() for name in _DTYPES}
+    out["n_valid"] = np.int32(g.n_valid)
+    return out
+
+
+# Reference BuildConfig fields with no counterpart here, and the one value
+# the port accepts for each (engine selection follows the tensor's device,
+# so ``dispatch``/``use_pallas`` carry no meaning and are dropped).
+_FIXED = {
+    "precision": "fp32", "data_bf16": False, "seed_mode": "random", "intra_wave": True,
+}
+_DROPPED = (
+    "dispatch", "use_pallas", "rerank_factor", "coarse_landmarks",
+    "coarse_members", "coarse_top",
+)
+
+
+def build_config_from_dict(d: dict) -> BuildConfig:
+    """A reference ``BuildConfig.__dict__`` -> the port's ``BuildConfig``.
+
+    Raises for settings the port does not run yet (compressed precisions,
+    coarse seeding, bf16 storage) rather than dropping them silently."""
+    for name, want in _FIXED.items():
+        if name in d and d[name] != want:
+            raise ValueError(f"the port runs {name}={want!r} only, got {d[name]!r}")
+    fields = {f.name for f in dataclasses.fields(BuildConfig)}
+    unknown = set(d) - fields - set(_FIXED) - set(_DROPPED)
+    if unknown:
+        raise ValueError(f"unknown BuildConfig fields: {sorted(unknown)}")
+    return BuildConfig(**{key: v for key, v in d.items() if key in fields})

@@ -1,0 +1,139 @@
+"""Builder and loader for the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled, at
+first use, into its own shared library::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+``<hash>`` covers the flags, the ``.cu`` source and every shared ``.cuh``, so
+an edited source is rebuilt and a stale library is never loaded.  The
+libraries are loaded with ``ctypes``: pointers and the stream are passed as
+``c_void_p``, sizes as ``c_int``, and every entry point returns
+``cudaGetLastError()``, which ``launch`` turns into an exception.
+
+``build()`` compiles several libraries at once (one ``nvcc`` process per
+source, all started together); ``chip_smoke.py`` calls it before its first
+phase.  Nothing is compiled or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Iterable, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# <checkout>/build/kernels — src/repro_torch/kernels/_cuda.py is 4 levels down
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("gather_dist", "expand", "distance")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Kernel launches on the card, by kernel name.  Each wrapper adds one where
+# it launches its kernel and nowhere else; the plain versions never count.
+LAUNCHES = {"gather_distance": 0, "fused_expand": 0, "pairwise_distance": 0}
+
+_loaded: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and on PATH)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> dict:
+    """Compile every missing library in ``names``, all nvcc runs in parallel.
+
+    Returns {name: library path}; raises with nvcc's output if any source
+    fails to compile."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    out = {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            out[name] = path
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for name, (path, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+            continue
+        os.replace(tmp, path)
+        out[name] = path
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` of library ``lib``, built and loaded on first use."""
+    key = (lib, symbol)
+    if key not in _loaded:
+        path = library_path(lib)
+        if not path.exists():
+            build([lib])
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _loaded[key] = fn
+    return _loaded[key]
+
+
+def launch(kernel: str, fn: ctypes._CFuncPtr, device: torch.device, *args) -> None:
+    """Call a C launcher on ``device``'s current stream; raise on a CUDA
+    error."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+    LAUNCHES[kernel] += 1
+
+
+def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
+    """Kernels take contiguous CUDA tensors on one device, nothing else."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{kernel}: needs CUDA tensors on one device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: needs contiguous tensors")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,82 @@
+"""Plain PyTorch versions of the three kernels (counterpart of
+``repro.kernels.ref``).
+
+These are the CPU execution path and the oracle each CUDA kernel is held
+against on the card.  The gather distance uses the same norms-decomposed
+formula as the kernels (``‖q‖² + ‖x‖² − 2·q·x`` with ``‖x‖²`` from the
+graph-resident cache), so the kernel and its plain version agree bit for bit
+on integer-valued data and to float tolerance elsewhere.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import metrics
+
+
+def pairwise_distance(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    metric: str = "l2",
+    *,
+    x_sq_norms: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(m, d) x (n, d) -> (m, n) float32; the l2 form consumes the cached
+    ``‖x‖²`` when given."""
+    if x_sq_norms is not None and metric == "l2":
+        qf, xf = q.float(), x.float()
+        qn = (qf * qf).sum(-1, keepdim=True)
+        return (qn + x_sq_norms.float()[None, :] - 2.0 * (qf @ xf.T)).clamp_min(0.0)
+    return metrics.pairwise(metric, q, x)
+
+
+def gather_distance(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    idx: torch.Tensor,
+    metric: str = "l2",
+    *,
+    sq_norms: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(b, d) queries vs rows x[idx] (b, c) -> (b, c) float32; +inf at idx < 0.
+
+    ``sq_norms`` is the (n,) graph-resident ``‖x‖²`` cache; the gathered rows'
+    norms are derived when it is absent.
+    """
+    safe = idx.long().clamp(0, x.shape[0] - 1)
+    cand = x[safe].float()  # (b, c, d)
+    if metric in ("l2", "ip", "cosine"):
+        qf = metrics.normalize_rows(q) if metric == "cosine" else q.float()
+        dots = (qf[:, None, :] * cand).sum(-1)
+        if metric == "ip":
+            d = -dots
+        else:
+            xn = (cand * cand).sum(-1) if sq_norms is None else sq_norms.float()[safe]
+            if metric == "l2":
+                qn = (qf * qf).sum(-1, keepdim=True)
+                d = (qn + xn - 2.0 * dots).clamp_min(0.0)
+            else:
+                d = 1.0 - dots / xn.sqrt().clamp_min(1e-12)
+    else:
+        d = metrics.row_terms(metric, q, cand)
+    return torch.where(idx >= 0, d, float("inf"))
+
+
+def sort_key(dists: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 keys in IEEE total order (-0.0 before +0.0).
+
+    ``jax.lax.top_k`` ranks in total order with ties to the lower index, so a
+    stable ascending sort on these keys reproduces its selection exactly."""
+    bits = dists.float().contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def topk_smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):
+    """Row-wise smallest-k: ((m, k) dists ascending, (m, k) ids), ties to the
+    lower column.  A stable sort, never ``torch.topk`` (whose tie order is
+    unspecified)."""
+    order = torch.sort(sort_key(dists), dim=1, stable=True).indices[:, :k]
+    return torch.gather(dists, 1, order), torch.gather(ids, 1, order)

@@ -1,0 +1,106 @@
+"""Port isolation: ``repro_torch`` imports neither JAX nor the JAX package,
+its entry points never fall back to the CPU on their own, and the CPU path
+launches no kernel."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core import brute, construct, search
+from repro_torch.kernels import _cuda, distance, expand, gather_dist, ops
+from repro_torch.launch import build_graph
+
+torch.set_num_threads(2)
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = SRC.parent
+
+
+def _modules():
+    pkg = SRC / "repro_torch"
+    return sorted(
+        "repro_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
+        for p in pkg.rglob("*.py") if p.name != "__init__.py"
+    )
+
+
+def test_no_jax_or_reference_package_in_sys_modules():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= len(_modules())
+
+
+def test_chip_smoke_imports_no_jax():
+    text = (ROOT / "chip_smoke.py").read_text()
+    for line in text.splitlines():
+        words = line.replace(",", " ").split()
+        if words[:1] in (["import"], ["from"]):
+            assert "jax" not in words[1] and words[1].split(".")[0] != "repro", line
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    x = torch.rand(300, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        construct.build(x, construct.BuildConfig(k=4, wave=32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        brute.brute_force_knn(x, x[:3], 4)
+    g = brute.exact_seed_graph(x, 32, 4, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        search.search(g, x, x[:3], search.SearchConfig(k=4, beam=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_graph.main(["--n", "300", "--d", "4"])
+    assert device_lib.resolve("cpu") == torch.device("cpu")
+
+
+def test_cpu_path_launches_no_kernel():
+    ops.reset_launch_counts()
+    x = torch.from_numpy(np.random.RandomState(0).rand(400, 6).astype(np.float32))
+    g, _ = construct.build(x, construct.BuildConfig(k=6, wave=64, beam=12, max_iters=10),
+                           device="cpu")
+    brute.brute_force_knn(x, x[:20], 5, device="cpu")
+    assert g.n_valid == 400
+    assert ops.launch_counts() == {name: 0 for name in _cuda.LAUNCHES}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.rand(50, 8)
+    idx = torch.zeros(4, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_dist.gather_distance(x[:4], x, idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        distance.pairwise_distance(x[:4], x)
+    with pytest.raises(ValueError, match="CUDA"):
+        expand.fused_expand(
+            x[:4], x, idx, idx, torch.zeros(4, 3), torch.zeros(4, 3, dtype=torch.bool),
+            torch.full((4, 16), -1, dtype=torch.int32), torch.zeros(4, 16),
+        )
+    assert ops.launch_counts() == {name: 0 for name in _cuda.LAUNCHES}
+
+
+def test_kernel_library_paths_are_keyed_by_source():
+    paths = {name: _cuda.library_path(name) for name in _cuda.SOURCES}
+    for name, path in paths.items():
+        assert path.parent == _cuda.BUILD_DIR and path.name.startswith(name + "-")
+        assert (_cuda.CSRC / f"{name}.cu").exists()
+    assert len(set(paths.values())) == len(paths)
+    assert _cuda.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
