@@ -35,6 +35,7 @@ The last line of its output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -50,6 +51,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 RTOL, ATOL = 1e-5, 1e-3
+# ~0.1 s at the H100's clock: longer than the host takes to queue one timing
+SPIN_CYCLES = 200_000_000
 METRICS = ("l2", "ip", "cosine", "l1", "chi2")
 EXACT_METRICS = ("l2", "ip", "l1")  # exact fp32 sums on integer-valued data
 
@@ -102,7 +105,7 @@ def main() -> int:
     smoke = Smoke(torch)
     try:
         smoke.build_kernels()
-        smoke.phase_kernels(1_000_000)
+        smoke.phase_kernels()
         smoke.phase_build_parity()
         smoke.phase_full()
     except PhaseError as exc:
@@ -133,12 +136,16 @@ class Smoke:
 
     def time_ms(self, fns, warmup=2):
         """Mean device time of one call, over calls fns[0], fns[1], ...
-        (CUDA events around the whole run, after warm-up calls)."""
+        (CUDA events around the whole run, after warm-up calls).  A spin
+        kernel holds the stream while the host queues the calls, so the
+        events time the device's work back to back and not the host's rate
+        of launching it (unless a call waits on the device itself)."""
         torch = self.torch
         for f in fns[:warmup]:
             f()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for f in fns[warmup:]:
             f()
@@ -176,10 +183,12 @@ class Smoke:
               + ", ".join(sorted(built)), flush=True)
 
     # ---------------------------------------------------------------- phase 2
-    def phase_kernels(self, n):
+    def phase_kernels(self):
         torch = self.torch
+        from repro_torch.configs import knn_lgd
         from repro_torch.core.graph import squared_norms
-        from repro_torch.kernels import distance, expand, gather_dist
+        from repro_torch.launch import build_graph
+        from repro_torch.kernels import distance, expand, gather_dist, ref
 
         t0 = time.perf_counter()
         for metric in METRICS:
@@ -193,12 +202,12 @@ class Smoke:
                     what = f"{metric} d={d} {'int' if integer else 'gauss'}"
                     self.compare("gather_distance",
                                  gather_dist.gather_distance(q, x, idx, metric, sq_norms=sq),
-                                 gather_dist.plain(q, x, idx, metric, sq_norms=sq),
+                                 ref.gather_distance(q, x, idx, metric, sq_norms=sq),
                                  exact=exact, what=what)
                     for xn in ((None, sq) if metric == "l2" else (None,)):
                         self.compare("pairwise_distance",
                                      distance.pairwise_distance(q, x[:130], metric, x_sq_norms=None if xn is None else xn[:130]),
-                                     distance.plain(q, x[:130], metric, x_sq_norms=None if xn is None else xn[:130]),
+                                     ref.pairwise_distance(q, x[:130], metric, x_sq_norms=None if xn is None else xn[:130]),
                                      exact=exact, what=what + (" cached" if xn is not None else ""))
                     self.check_expand(x, q, sq, metric, integer, B=33, C=23, e=16, H=64, P=4, steps=3)
         print(f"phase 2a: small shapes, five metrics: kernels agree with plain "
@@ -206,15 +215,15 @@ class Smoke:
 
         # main-path shapes (l2, d=128): seed gather B=4096 C=8, expansion
         # B=4096 C=60 e=40 H=2048 P=8, intra-wave tile 4096², brute tile
-        d = 128
-        xf = self.clustered(n, d, 7)
+        d = knn_lgd.D
+        xf = build_graph.make_data(knn_lgd.N_ROWS, d, "l2", self.dev)
         xi = self.data(200_000, d, 8, integer=True)
         for x, integer in ((xf, False), (xi, True)):
             sq = squared_norms(x)
             q = x[torch.randint(0, x.shape[0], (4096,), generator=self.gen(9), device=self.dev)]
             idx = torch.randint(0, x.shape[0], (4096, 8), generator=self.gen(10), device=self.dev).int()
             got = gather_dist.gather_distance(q, x, idx, "l2", sq_norms=sq)
-            self.compare("gather_distance", got, gather_dist.plain(q, x, idx, "l2", sq_norms=sq),
+            self.compare("gather_distance", got, ref.gather_distance(q, x, idx, "l2", sq_norms=sq),
                          exact=integer, what=f"main shape {'int' if integer else 'clustered'}")
             if not integer:
                 self.time_gather(q, x, idx, sq)
@@ -223,7 +232,7 @@ class Smoke:
             xq = x[:4096]
             sqq = sq[:4096]
             got = distance.pairwise_distance(xq, xq, "l2", x_sq_norms=sqq)
-            self.compare("pairwise_distance", got, distance.plain(xq, xq, "l2", x_sq_norms=sqq),
+            self.compare("pairwise_distance", got, ref.pairwise_distance(xq, xq, "l2", x_sq_norms=sqq),
                          exact=integer, what=f"intra-wave tile {'int' if integer else 'clustered'}")
             if not integer:
                 self.time_pairwise(xq, xq, sqq, main=True)
@@ -231,16 +240,11 @@ class Smoke:
         self.xf = xf
         print("phase 2b: main-path shapes: kernels agree with plain", flush=True)
 
-    def clustered(self, n, d, seed):
-        from repro_torch.data import synthetic
-
-        return synthetic.clustered(self.gen(seed), n, d)
-
     def time_gather(self, q, x, idx, sq):
-        from repro_torch.kernels import gather_dist
+        from repro_torch.kernels import gather_dist, ref
 
         ms = self.time_ms([lambda: gather_dist.gather_distance(q, x, idx, "l2", sq_norms=sq)] * 22)
-        plain_ms = self.time_ms([lambda: gather_dist.plain(q, x, idx, "l2", sq_norms=sq)] * 12)
+        plain_ms = self.time_ms([lambda: ref.gather_distance(q, x, idx, "l2", sq_norms=sq)] * 12)
         B, C = idx.shape
         d = x.shape[1]
         valid = int((idx >= 0).sum())
@@ -252,12 +256,12 @@ class Smoke:
 
     def time_pairwise(self, q, x, xn, *, main):
         torch = self.torch
-        from repro_torch.kernels import distance
+        from repro_torch.kernels import distance, ref
 
         m, d = q.shape
         n = x.shape[0]
         ms = self.time_ms([lambda: distance.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
-        plain_ms = self.time_ms([lambda: distance.plain(q, x, "l2", x_sq_norms=xn)] * 12)
+        plain_ms = self.time_ms([lambda: ref.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
         lib_ms = self.time_ms([lambda: torch.cdist(q, x)] * 12)
         b, how = bound(4 * (m * d + n * d + n + m * n), 2 * m * n * d)
         print(f"pairwise_distance m={m} n={n} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
@@ -288,7 +292,7 @@ class Smoke:
             return torch.where(torch.rand((B, C), generator=g, device=self.dev) < 0.15, -1, c)
 
         for _ in range(warm):
-            beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, _ = expand.plain(
+            beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, _ = expand.expand_reference(
                 q, x, cands(), beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
                 metric=metric, probes=P, sq_norms=sq)
         return cands(), beam_ids, beam_dist, beam_exp, vis_ids, vis_dist
@@ -304,7 +308,7 @@ class Smoke:
             cands, bi, bd, be, vi, vd = state
             kw = dict(metric=metric, probes=P, sq_norms=sq)
             got = expand.fused_expand(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), **kw)
-            want = expand.plain(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), **kw)
+            want = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), **kw)
             what = f"{metric} B={B} C={C} e={e} H={H} step {step} {'int' if integer else 'float'}"
             # the hash ids and comps never depend on distance values
             for i, name in ((3, "vis_ids"), (5, "comps")):
@@ -327,9 +331,9 @@ class Smoke:
         ms = self.time_ms([lambda h=h: expand.fused_expand(q, x, cands, bi, bd, be, *h, **kw)
                            for h in hashes])
         hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
-        plain_ms = self.time_ms([lambda h=h: expand.plain(q, x, cands, bi, bd, be, *h, **kw)
+        plain_ms = self.time_ms([lambda h=h: expand.expand_reference(q, x, cands, bi, bd, be, *h, **kw)
                                  for h in hashes])
-        out = expand.plain(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), **kw)
+        out = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), **kw)
         B, C = cands.shape
         e, d = bi.shape[1], x.shape[1]
         fresh = int(out[5].sum())
@@ -355,7 +359,7 @@ class Smoke:
         saved = (ops.pairwise_distance, ops.gather_distance, ops.expand_step)
 
         def expand_step(*args, hash_probes=8, **kw):
-            return expand.plain(*args, probes=hash_probes, **kw)
+            return expand.expand_reference(*args, probes=hash_probes, **kw)
 
         ops.pairwise_distance, ops.gather_distance, ops.expand_step = (
             ref.pairwise_distance, ref.gather_distance, expand_step)
@@ -367,11 +371,12 @@ class Smoke:
     def phase_build_parity(self):
         torch = self.torch
         from repro_torch import convert
+        from repro_torch.configs import knn_lgd
         from repro_torch.core import construct
 
         n, d = 20_000, 32
         x = self.data(n, d, 12, integer=True)
-        cfg = construct.BuildConfig(k=20, metric="l2", wave=1024, lgd=True, beam=40, n_seeds=8)
+        cfg = dataclasses.replace(knn_lgd.full_config(), wave=1024)
 
         def seed_fn(wave, pos, W, n_valid):
             g = torch.Generator().manual_seed(1000 + wave)
@@ -400,16 +405,19 @@ class Smoke:
     # ---------------------------------------------------------------- phase 4
     def phase_full(self):
         torch = self.torch
+        from repro_torch.configs import knn_lgd
         from repro_torch.core import brute, construct, graph as graph_lib
+        from repro_torch.launch import build_graph
 
-        x = self.xf  # the clustered rows phase 2 gathered from
+        x = self.xf  # the launcher's rows, which phase 2 gathered from
         n = x.shape[0]
-        cfg = construct.BuildConfig(k=20, metric="l2", wave=4096, lgd=True, beam=40, n_seeds=8)
+        cfg = knn_lgd.full_config()
 
         def run():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            g, stats = construct.build(x, cfg, generator=self.gen(13), device=self.dev)
+            g, stats = construct.build(x, cfg, generator=self.gen(build_graph.BUILD_SEED),
+                                       device=self.dev)
             torch.cuda.synchronize()
             return g, stats, time.perf_counter() - t0
 

@@ -38,10 +38,3 @@ def clustered(
     assign = torch.randint(0, n_clusters, (n,), generator=generator, device=dev)
     z = centers[assign] + normal(n, intrinsic_dim) * 0.15
     return (z @ basis + noise * normal(n, d)).float()
-
-
-GENERATORS = {"uniform": uniform, "clustered": clustered}
-
-
-def make(kind: str, generator: torch.Generator, n: int, d: int, **kw) -> torch.Tensor:
-    return GENERATORS[kind](generator, n, d, **kw)

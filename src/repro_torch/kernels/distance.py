@@ -7,8 +7,8 @@ brute-force ground truth all go through it.  The CUDA kernel is a 64x64-tile
 shared-memory SIMT GEMM in full fp32 with a norm epilogue (``x_sq_norms``,
 the graph-resident ``‖x‖²`` cache, replaces the x-side norm reduction for
 l2); l1/chi2 run in the same tiling.  Cosine normalizes both sides here and
-takes ``1 − dot`` in the kernel.  ``plain`` is ``kernels.ref
-.pairwise_distance``.
+takes ``1 − dot`` in the kernel.  Its plain version is
+``kernels.ref.pairwise_distance``.
 """
 
 from __future__ import annotations
@@ -19,9 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import metrics
-from repro_torch.kernels import _cuda, ref
-
-plain = ref.pairwise_distance
+from repro_torch.kernels import _cuda
 
 # metric name -> the kernel's PairMetric enum (csrc/distance.cu)
 KERNEL_METRIC = {"l2": 0, "ip": 1, "cosine": 2, "l1": 3, "chi2": 4}

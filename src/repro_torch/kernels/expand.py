@@ -155,8 +155,6 @@ def expand_reference(
     )
 
 
-plain = expand_reference
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 13 + [_I] * 7 + [_P]
 

@@ -4,7 +4,7 @@ version (counterpart of ``repro.kernels.gather_dist``).
 ``gather_distance(q, x, idx)`` gives, for each query b, the distances to the
 rows ``x[idx[b, :]]``, +inf where an id is negative.  The CUDA kernel runs one
 CTA per query and one warp per candidate row, through the same device routine
-the fused expansion uses (``csrc/row_distance.cuh``).  ``plain`` is
+the fused expansion uses (``csrc/row_distance.cuh``).  Its plain version is
 ``kernels.ref.gather_distance``: the CPU path and the kernel's oracle.
 """
 
@@ -17,9 +17,7 @@ import torch
 
 from repro_torch.core import metrics
 from repro_torch.core.graph import squared_norms
-from repro_torch.kernels import _cuda, ref
-
-plain = ref.gather_distance
+from repro_torch.kernels import _cuda
 
 # metric name -> the kernel's Metric enum (csrc/row_distance.cuh)
 KERNEL_METRIC = {"l2": 0, "ip": 1, "cosine": 2, "l1": 4, "chi2": 5}

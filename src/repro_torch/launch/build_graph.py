@@ -4,21 +4,36 @@ graph recall scored against brute force.
     PYTHONPATH=src python -m repro_torch.launch.build_graph \\
         --n 1000000 --d 128 --k 20 --wave 4096 --eval-sample 10000
 
-Runs on the card (the hand-written kernels); ``--device cpu`` runs the plain
-PyTorch versions instead.  Unlike the JAX launcher, which pins
-``dispatch="reference"``, nothing here selects an engine: the device does.
+The build is the knn-lgd configuration with the flags' fields replaced, over
+``clustered`` rows drawn from ``DATA_SEED``, with entry points drawn from
+``BUILD_SEED``; ``chip_smoke.py`` builds from the same seeds, so the two
+agree at the same n, d and flags.  Runs on the card (the hand-written
+kernels); ``--device cpu`` runs the plain PyTorch versions instead.  Unlike
+the JAX launcher, which pins ``dispatch="reference"``, nothing here selects
+an engine: the device does.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.configs import knn_lgd
 from repro_torch.core import brute, construct
 from repro_torch.data import synthetic
+
+DATA_SEED, BUILD_SEED = 7, 13
+
+
+def make_data(n: int, d: int, metric: str, device) -> torch.Tensor:
+    """The launcher's rows: ``clustered`` from ``DATA_SEED`` (made
+    non-negative for chi2)."""
+    x = synthetic.clustered(torch.Generator(device=device).manual_seed(DATA_SEED), n, d)
+    return x.abs() if metric == "chi2" else x
 
 
 def graph_recall(x, g, k: int, metric: str, sample: int) -> float:
@@ -38,7 +53,6 @@ def main(argv=None):
     ap.add_argument("--d", type=int, default=32)
     ap.add_argument("--k", type=int, default=20)
     ap.add_argument("--metric", default="l2", choices=["l2", "ip", "cosine", "l1", "chi2"])
-    ap.add_argument("--kind", default="clustered", choices=list(synthetic.GENERATORS))
     ap.add_argument("--algo", default="lgd", choices=["lgd", "olg"])
     ap.add_argument("--wave", type=int, default=512)
     ap.add_argument("--eval-sample", type=int, default=0, metavar="M",
@@ -47,14 +61,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = device_lib.resolve(args.device)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    x = synthetic.make(args.kind, gen, args.n, args.d)
-    if args.metric == "chi2":
-        x = x.abs()
-    cfg = construct.BuildConfig(
-        k=args.k, metric=args.metric, wave=args.wave,
+    x = make_data(args.n, args.d, args.metric, dev)
+    cfg = dataclasses.replace(
+        knn_lgd.full_config(), k=args.k, metric=args.metric, wave=args.wave,
         lgd=args.algo == "lgd", beam=max(40, args.k),
     )
+    gen = torch.Generator(device=dev).manual_seed(BUILD_SEED)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()

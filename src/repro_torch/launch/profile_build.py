@@ -2,32 +2,36 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_build
 
-1. The knn-lgd build (k=20, l2, W=4096, beam 40, 8 seeds) over n=1,000,000
-   clustered rows of d=128, with its wall time split between the insertion
+1. The knn-lgd build (``configs.knn_lgd``) over its 10^6 rows, on the
+   launcher's data and seeds, with its wall time split between the insertion
    searches, ``merge.merge_candidates`` and the rest of ``commit_wave``.
    Each part is timed on the host clock between ``torch.cuda.synchronize()``
    calls, once per wave.
-2. The same build over the first ``--profile-n`` rows under
-   ``torch.profiler``: device time by kernel name, and the device's busy
-   share of the profiled wall time.
+2. The same build over its first ``PROFILE_ROWS`` rows under
+   ``torch.profiler``: the device's busy share of the profiled wall time,
+   the device time per launch of each of the port's kernels, and the
+   ``TOP`` kernels by device time.
 
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import argparse
 import collections
 import time
 
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.configs import knn_lgd
 from repro_torch.core import construct, merge
 from repro_torch.core import search as search_lib
-from repro_torch.data import synthetic
+from repro_torch.launch import build_graph
 
-CONFIG = construct.BuildConfig(k=20, metric="l2", wave=4096, lgd=True, beam=40, n_seeds=8)
+PROFILE_ROWS = 200_000
+TOP = 20
+# the port's kernels by their CUDA function names (csrc/*.cu)
+PORT_KERNELS = ("gather_distance_kernel", "fused_expand_kernel", "pairwise_kernel")
 
 
 def _timed(totals, name, fn):
@@ -42,7 +46,12 @@ def _timed(totals, name, fn):
     return run
 
 
-def split_build(x: torch.Tensor, gen: torch.Generator) -> dict:
+def _build(x, cfg):
+    gen = torch.Generator(device=x.device).manual_seed(build_graph.BUILD_SEED)
+    return construct.build(x, cfg, generator=gen, device=x.device)
+
+
+def split_build(x: torch.Tensor, cfg: construct.BuildConfig) -> dict:
     """Build over x with the search, the merge and the commit timed apart."""
     totals = collections.Counter()
     saved = (search_lib.search, merge.merge_candidates, construct.commit_wave)
@@ -52,7 +61,7 @@ def split_build(x: torch.Tensor, gen: torch.Generator) -> dict:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        construct.build(x, CONFIG, generator=gen, device=x.device)
+        _build(x, cfg)
         torch.cuda.synchronize()
         totals["build"] = time.perf_counter() - t0
     finally:
@@ -60,29 +69,25 @@ def split_build(x: torch.Tensor, gen: torch.Generator) -> dict:
     return totals
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--profile-n", type=int, default=200_000)
-    ap.add_argument("--top", type=int, default=20)
-    args = ap.parse_args(argv)
+def main():
     dev = device_lib.resolve(None)
-    x = synthetic.clustered(torch.Generator(device=dev).manual_seed(7), args.n, 128)
-    construct.build(x[:20_000], CONFIG, generator=torch.Generator(device=dev), device=dev)
+    cfg = knn_lgd.full_config()
+    n = knn_lgd.N_ROWS
+    x = build_graph.make_data(n, knn_lgd.D, cfg.metric, dev)
+    _build(x[:20_000], cfg)  # warm-up: kernel build and first launches
 
-    t = split_build(x, torch.Generator(device=dev).manual_seed(13))
+    t = split_build(x, cfg)
     commit_rest = t["commit_wave"] - t["merge_candidates"]
     other = t["build"] - t["search"] - t["commit_wave"]
-    print(f"build n={args.n} W={CONFIG.wave}: {t['build']:.3f} s = search {t['search']:.3f} s"
+    print(f"build n={n} W={cfg.wave}: {t['build']:.3f} s = search {t['search']:.3f} s"
           f" + merge_candidates {t['merge_candidates']:.3f} s + rest of commit_wave "
           f"{commit_rest:.3f} s + other {other:.3f} s")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    xp = x[: args.profile_n]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        construct.build(xp, CONFIG, generator=torch.Generator(device=dev).manual_seed(13), device=dev)
+        _build(x[:PROFILE_ROWS], cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel rows only: an op's row repeats the device time of its kernels
@@ -90,9 +95,14 @@ def main(argv=None):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=_device_us, reverse=True)
     busy = sum(_device_us(e) for e in kernels) / 1e6
-    print(f"profiled build n={args.profile_n}: wall {wall:.3f} s under the profiler, device busy "
+    print(f"profiled build n={PROFILE_ROWS}: wall {wall:.3f} s under the profiler, device busy "
           f"{busy:.3f} s ({100 * busy / wall:.1f}% of wall), {len(kernels)} distinct kernels")
-    for e in kernels[: args.top]:
+    for name in PORT_KERNELS:
+        rows = [e for e in kernels if name in e.key]
+        us, calls = sum(_device_us(e) for e in rows), sum(e.count for e in rows)
+        print(f"  port kernel {name}: {us / 1e3:.3f} ms device time over {calls} launches, "
+              f"{us / 1e3 / max(calls, 1):.6f} ms per launch")
+    for e in kernels[:TOP]:
         print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:8d} calls  {e.key[:100]}")
 
 

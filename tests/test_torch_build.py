@@ -6,32 +6,22 @@
   algorithm) and W=64.
 * N(0,1) data, n=2000, d=20: recall@10 >= 0.95 and within 0.01 of the
   reference, scanning rate within 5%, every graph invariant true.
+
+``test_torch_wide_wave.py`` holds the same comparisons where a wave is
+wider than the graph it searches, as on the knn-lgd main path; it is a file
+of its own so that each file runs within 60 s on one worker.
 """
 
-import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
 import torch_parity as tp
 from repro.core import construct as jconstruct
-from repro_torch.core import brute as tbrute
 from repro_torch.core import construct as tconstruct
 from repro_torch.core import graph as tgraph
 from repro_torch.launch import build_graph as tlaunch
 
 torch.set_num_threads(2)
-
-
-def _builds(x, seed, **kw):
-    jcfg = jconstruct.BuildConfig(dispatch="reference", **kw)
-    g_j, st_j = jconstruct.build(jnp.asarray(x), jcfg, jax.random.PRNGKey(seed))
-    g_t, st_t = tconstruct.build(
-        torch.from_numpy(x), tconstruct.BuildConfig(**kw),
-        seed_fn=tp.build_seed_fn(jax.random.PRNGKey(seed), kw["n_seeds"]), device="cpu",
-    )
-    return (g_j, st_j), (g_t, st_t)
 
 
 # The knn-lgd search shape at the gate's size.  The W=64 bit-exact case and
@@ -49,7 +39,7 @@ GATE = dict(k=24, wave=64, beam=48, n_seeds=8, lgd=True)
 )
 def test_build_bit_identical_on_integer_data(n, d, kw):
     x = tp.int_data(n, d, seed=1)
-    (g_j, st_j), (g_t, st_t) = _builds(x, 3, **kw)
+    (g_j, st_j), (g_t, st_t) = tp.build_both(x, 3, **kw)
     tp.assert_graphs_equal(g_t, g_j, kw["wave"])
     assert int(st_t.n_comps) == int(st_j.n_comps)
     assert int(st_t.n_inserted_edges) == int(st_j.n_inserted_edges)
@@ -59,13 +49,8 @@ def test_build_bit_identical_on_integer_data(n, d, kw):
 def test_build_gaussian_recall_and_scanning_rate():
     n = GATE_N
     x = tp.gauss_data(n, GATE_D, seed=0)
-    (g_j, st_j), (g_t, st_t) = _builds(x, 0, **GATE)
-    truth, _ = tbrute.brute_force_knn(
-        torch.from_numpy(x), torch.from_numpy(x), 10,
-        exclude_ids=torch.arange(n, dtype=torch.int32), device="cpu",
-    )
-    r_t = tbrute.recall_at_k(g_t.nbr_ids, truth, 10)
-    r_j = tbrute.recall_at_k(torch.from_numpy(np.asarray(g_j.nbr_ids)), truth, 10)
+    (g_j, st_j), (g_t, st_t) = tp.build_both(x, 0, **GATE)
+    r_t, r_j = tp.graph_recalls(x, g_t, g_j)
     assert r_t >= 0.95 and abs(r_t - r_j) <= 0.01, (r_t, r_j)
     c_t, c_j = tconstruct.scanning_rate(st_t, n), jconstruct.scanning_rate(st_j, n)
     assert abs(c_t - c_j) <= 0.05 * c_j, (c_t, c_j)

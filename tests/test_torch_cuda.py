@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import brute, construct
-from repro_torch.kernels import distance, expand, gather_dist, ops
+from repro_torch.kernels import distance, expand, gather_dist, ops, ref
 
 torch.set_num_threads(2)
 
@@ -47,7 +47,7 @@ def test_gather_kernel(card, metric):
     q = x[:9] * 0.5
     idx = torch.from_numpy(np.random.RandomState(2).randint(-1, 300, (9, 21))).int().to(card)
     torch.testing.assert_close(
-        gather_dist.gather_distance(q, x, idx, metric), gather_dist.plain(q, x, idx, metric),
+        gather_dist.gather_distance(q, x, idx, metric), ref.gather_distance(q, x, idx, metric),
         rtol=1e-5, atol=1e-3,
     )
 
@@ -61,7 +61,7 @@ def test_pairwise_kernel(card, metric):
     xn = (x * x).sum(-1) if cached else None
     torch.testing.assert_close(
         distance.pairwise_distance(q, x, metric, x_sq_norms=xn),
-        distance.plain(q, x, metric, x_sq_norms=xn),
+        ref.pairwise_distance(q, x, metric, x_sq_norms=xn),
         rtol=1e-5, atol=1e-3,
     )
 
@@ -83,7 +83,7 @@ def test_expand_kernel_bit_exact_on_integers(card, metric, H):
     for step in range(3):
         got = expand.fused_expand(x[:B], x, cands, *state_k[:3], *(t.clone() for t in state_k[3:]),
                                   metric=metric, probes=4)
-        want = expand.plain(x[:B], x, cands, *state_p[:3], *(t.clone() for t in state_p[3:]),
+        want = expand.expand_reference(x[:B], x, cands, *state_p[:3], *(t.clone() for t in state_p[3:]),
                             metric=metric, probes=4)
         for name, a, b in zip(FIELDS, got, want):
             assert torch.equal(a, b), f"step {step} {name}"
@@ -106,10 +106,10 @@ def test_build_kernels_match_plain_and_count_launches(card, monkeypatch):
     brute.brute_force_knn(x, x[:50], 10, device=card)
     counts = ops.launch_counts()
     assert all(c > 0 for c in counts.values()), counts
-    monkeypatch.setattr(ops, "pairwise_distance", distance.plain)
-    monkeypatch.setattr(ops, "gather_distance", gather_dist.plain)
+    monkeypatch.setattr(ops, "pairwise_distance", ref.pairwise_distance)
+    monkeypatch.setattr(ops, "gather_distance", ref.gather_distance)
     monkeypatch.setattr(ops, "expand_step",
-                        lambda *a, hash_probes=8, **kw: expand.plain(*a, probes=hash_probes, **kw))
+                        lambda *a, hash_probes=8, **kw: expand.expand_reference(*a, probes=hash_probes, **kw))
     g_p, st_p = construct.build(x, cfg, seed_fn=seed_fn, device=card)
     for name in ("nbr_ids", "nbr_dist", "nbr_lam", "rev_ids", "rev_lam", "rev_ptr", "alive"):
         assert torch.equal(getattr(g_k, name), getattr(g_p, name)), name

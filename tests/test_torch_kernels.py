@@ -63,7 +63,7 @@ def test_pairwise_plain_matches_pallas(metric, integer):
         jnp.asarray(q), jnp.asarray(x), metric=metric,
         x_sq_norms=None if xn is None else jnp.asarray(xn), interpret=True,
     )
-    got = tdistance.plain(
+    got = tref.pairwise_distance(
         torch.from_numpy(q), torch.from_numpy(x), metric,
         x_sq_norms=None if xn is None else torch.from_numpy(xn),
     )
@@ -81,7 +81,7 @@ def test_gather_plain_matches_pallas(metric, integer):
         jnp.asarray(q), jnp.asarray(x), jnp.asarray(idx), metric=metric,
         sq_norms=jnp.asarray(sq), interpret=True,
     )
-    got = tgather.plain(
+    got = tref.gather_distance(
         torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(idx), metric,
         sq_norms=torch.from_numpy(sq),
     )
@@ -127,7 +127,7 @@ def test_expand_plain_matches_pallas(metric, H):
             jnp.asarray(q), jnp.asarray(x), jnp.asarray(cands), *jstate,
             metric=metric, probes=P, sq_norms=jnp.asarray(sq), interpret=True,
         )
-        got = texpand.plain(
+        got = texpand.expand_reference(
             torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(cands), *tstate,
             metric=metric, probes=P, sq_norms=torch.from_numpy(sq),
         )
@@ -147,7 +147,7 @@ def test_expand_hash_updates_in_place():
     cands, bi, bd, be = (torch.from_numpy(np.array(a)) for a in _expand_inputs(B, C, e, H, n, 9))
     vi = torch.full((B, H), -1, dtype=torch.int32)
     vd = torch.full((B, H), float("inf"))
-    out = texpand.plain(x[:B], x, cands, bi, bd, be, vi, vd, probes=4)
+    out = texpand.expand_reference(x[:B], x, cands, bi, bd, be, vi, vd, probes=4)
     assert out[3] is vi and out[4] is vd
     for b in range(B):
         recorded = set(vi[b][vi[b] >= 0].tolist())
@@ -168,7 +168,7 @@ def test_same_slot_collision_later_candidate_wins():
             np.full((1, 4), np.inf, np.float32), np.ones((1, 4), bool),
             np.full((1, H), -1, np.int32), np.full((1, H), np.inf, np.float32))
     want = jexpand.fused_expand(*map(jnp.asarray, args), probes=1, interpret=True)
-    got = texpand.plain(*(torch.from_numpy(np.array(a_)) for a_ in args), probes=1)
+    got = texpand.expand_reference(*(torch.from_numpy(np.array(a_)) for a_ in args), probes=1)
     assert int(got[3][0, int(slots[0])]) == b
     for name, g, w in zip(EXPAND_FIELDS, got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=name)

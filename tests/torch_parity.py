@@ -13,7 +13,10 @@ import numpy as np
 import torch
 
 from repro.core import brute as jbrute
+from repro.core import construct as jconstruct
 from repro_torch import convert
+from repro_torch.core import brute as tbrute
+from repro_torch.core import construct as tconstruct
 
 GRAPH_FIELDS = (
     "nbr_ids", "nbr_dist", "nbr_lam", "rev_ids", "rev_lam", "rev_ptr",
@@ -67,6 +70,32 @@ def build_seed_fn(key, p: int):
         return torch.from_numpy(np.array(search_seeds(subkeys[wave], W, p, n_valid)))
 
     return seed_fn
+
+
+def build_both(x: np.ndarray, seed: int, **kw):
+    """The reference build (``dispatch="reference"``) from ``PRNGKey(seed)``
+    and the port's CPU build from the same replayed entry points:
+    ((graph, stats) of the reference, (graph, stats) of the port)."""
+    jcfg = jconstruct.BuildConfig(dispatch="reference", **kw)
+    g_j, st_j = jconstruct.build(jnp.asarray(x), jcfg, jax.random.PRNGKey(seed))
+    g_t, st_t = tconstruct.build(
+        torch.from_numpy(x), tconstruct.BuildConfig(**kw),
+        seed_fn=build_seed_fn(jax.random.PRNGKey(seed), kw["n_seeds"]), device="cpu",
+    )
+    return (g_j, st_j), (g_t, st_t)
+
+
+def graph_recalls(x: np.ndarray, g_t, g_j, k: int = 10) -> tuple[float, float]:
+    """Graph recall@k of the port's and the reference's graph over every
+    row, against brute force with the self-match excluded."""
+    n = x.shape[0]
+    truth, _ = tbrute.brute_force_knn(
+        torch.from_numpy(x), torch.from_numpy(x), k,
+        exclude_ids=torch.arange(n, dtype=torch.int32), device="cpu",
+    )
+    r_t = tbrute.recall_at_k(g_t.nbr_ids, truth, k)
+    r_j = tbrute.recall_at_k(torch.from_numpy(np.array(g_j.nbr_ids)), truth, k)
+    return r_t, r_j
 
 
 def assert_graphs_equal(g_torch, g_jax, err: str = "") -> None:
