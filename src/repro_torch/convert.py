@@ -3,7 +3,8 @@
 ``graph_from_numpy`` takes the reference ``KNNGraph`` fields as numpy arrays
 (``{name: np.asarray(field)}``) and gives the port's graph;
 ``graph_to_numpy`` goes the other way; ``build_config_from_dict`` carries a
-reference ``BuildConfig.__dict__``.  Nothing here imports the reference.
+reference ``BuildConfig.__dict__``; ``encoded_from_numpy`` carries a
+reference ``EncodedData``.  Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core.construct import BuildConfig
 from repro_torch.core.graph import KNNGraph
+from repro_torch.kernels.precision import EncodedData
 
 _DTYPES = {
     "nbr_ids": torch.int32,
@@ -49,20 +51,16 @@ def graph_to_numpy(g: KNNGraph) -> dict:
 # Reference BuildConfig fields with no counterpart here, and the one value
 # the port accepts for each (engine selection follows the tensor's device,
 # so ``dispatch``/``use_pallas`` carry no meaning and are dropped).
-_FIXED = {
-    "precision": "fp32", "data_bf16": False, "seed_mode": "random", "intra_wave": True,
-}
-_DROPPED = (
-    "dispatch", "use_pallas", "rerank_factor", "coarse_landmarks",
-    "coarse_members", "coarse_top",
-)
+_FIXED = {"data_bf16": False, "seed_mode": "random", "intra_wave": True}
+_DROPPED = ("dispatch", "use_pallas", "coarse_landmarks", "coarse_members", "coarse_top")
 
 
 def build_config_from_dict(d: dict) -> BuildConfig:
     """A reference ``BuildConfig.__dict__`` -> the port's ``BuildConfig``.
 
-    Raises for settings the port does not run yet (compressed precisions,
-    coarse seeding, bf16 storage) rather than dropping them silently."""
+    ``precision`` and ``rerank_factor`` are carried.  Raises for settings
+    the port does not run yet (coarse seeding, bf16 storage) rather than
+    dropping them silently."""
     for name, want in _FIXED.items():
         if name in d and d[name] != want:
             raise ValueError(f"the port runs {name}={want!r} only, got {d[name]!r}")
@@ -71,3 +69,20 @@ def build_config_from_dict(d: dict) -> BuildConfig:
     if unknown:
         raise ValueError(f"unknown BuildConfig fields: {sorted(unknown)}")
     return BuildConfig(**{key: v for key, v in d.items() if key in fields})
+
+
+def encoded_from_numpy(fields: dict, device="cpu") -> EncodedData:
+    """Reference ``EncodedData`` fields as numpy (``{name: np.asarray(field)
+    or None}``) -> the port's ``EncodedData``.  JAX's bfloat16 arrives as
+    ``ml_dtypes.bfloat16``, which torch cannot read: its bits are carried
+    through int16."""
+
+    def tensor(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+        return torch.from_numpy(a.copy()).to(device)
+
+    return EncodedData(**{name: tensor(fields.get(name)) for name in EncodedData._fields})

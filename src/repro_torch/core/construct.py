@@ -7,7 +7,8 @@ find each other, and one batched commit (``commit_wave``) writes the new
 rows, merges the candidate edges the searches logged into existing rows,
 updates the LGD occlusion factors λ (Rules 2/3) from distances the searches
 already computed, and appends the reverse lists.  W = 1 is the paper's
-sequential algorithm; ``lgd=False`` gives OLG.
+sequential algorithm; ``lgd=False`` gives OLG.  ``precision`` picks the
+searches' distance engine (fp32, bf16, int8 or PQ rank-then-rerank).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.core.graph import KNNGraph, row_scales, squared_norms
 from repro_torch.core.search import SearchConfig
 from repro_torch.kernels import expand as expand_lib
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import precision as precision_lib
 
 # seed_fn(wave, pos, W, n_valid) -> (W, n_seeds) int entry points of a wave
 SeedFn = Callable[[int, int, int, int], torch.Tensor]
@@ -46,6 +48,13 @@ class BuildConfig:
     n_seeds: int = 8  # p
     hash_slots: Optional[int] = None  # None = auto-size from beam/max_iters
     max_iters: int = 60
+    # distance-engine precision of the insertion searches; the intra-wave
+    # tile of the commit stays fp32
+    precision: str = "fp32"  # "fp32" | "bf16" | "int8" | "pq"
+    rerank_factor: int = 4  # pq: exact re-rank width = rerank_factor * k
+
+    def __post_init__(self):
+        precision_lib.validate_precision(self.precision)
 
     def search_config(self) -> SearchConfig:
         return SearchConfig(
@@ -56,6 +65,8 @@ class BuildConfig:
             max_iters=self.max_iters,
             metric=self.metric,
             use_lgd_mask=self.lgd,
+            precision=self.precision,
+            rerank_factor=self.rerank_factor,
         )
 
 
@@ -218,15 +229,19 @@ def wave_core(
     seeds: torch.Tensor,
     stats: BuildStats,
     cfg: BuildConfig,
+    enc: Optional[precision_lib.EncodedData] = None,
 ) -> tuple[KNNGraph, BuildStats]:
     """One wave: rows [pos, pos + W) search the graph from ``seeds`` (W, p)
-    and are committed; the stats fold in the wave's comparisons."""
+    and are committed; the stats fold in the wave's comparisons.  ``enc``
+    is the compressed table of the whole of ``x`` (``cfg.precision``)."""
     W = cfg.wave
     n = x.shape[0]
     n_real = min(W, n - pos)
     lanes = torch.arange(W, device=x.device)
     q = x[(pos + lanes).clamp_max(n - 1)]
-    res = search_lib.search(g, x, q, cfg.search_config(), seeds=seeds, device=x.device)
+    res = search_lib.search(
+        g, x, q, cfg.search_config(), seeds=seeds, enc=enc, device=x.device
+    )
     res = res._replace(n_comps=torch.where(lanes < n_real, res.n_comps, 0))
     g2, edges = commit_wave(g, x, pos, n_real, res, cfg)
     comps = res.n_comps.sum()
@@ -258,6 +273,9 @@ def build(
     dev = device_lib.resolve(device)
     x = x.to(dev).float()
     n = x.shape[0]
+    # one encode of the whole dataset serves every wave: rows not yet
+    # inserted are never candidates, so encoding them early changes nothing
+    enc = precision_lib.encode_dataset(x, cfg.precision)
     n_seed = min(cfg.n_seed_init, n)
     g = brute.exact_seed_graph(
         x, n_seed, cfg.k, cfg.metric, rev_capacity=cfg.rev_cap, device=dev
@@ -274,6 +292,6 @@ def build(
             seeds = torch.as_tensor(seed_fn(stats.n_waves, pos, W, g.n_valid))
         else:
             seeds = search_lib.random_seeds(W, cfg.n_seeds, g.n_valid, generator, dev)
-        g, stats = wave_core(g, x, pos, seeds.to(dev), stats, cfg)
+        g, stats = wave_core(g, x, pos, seeds.to(dev), stats, cfg, enc)
         pos += min(W, n - pos)
     return g, stats

@@ -1,6 +1,7 @@
 """Batched Enhanced Hill-Climbing (EHC, Alg. 1 and the LGD-aware expansion
-of Alg. 3) — counterpart of ``repro.core.search``, fp32 with random entry
-points.
+of Alg. 3) — counterpart of ``repro.core.search``, with random entry points
+and the distance engine at fp32, bf16, int8 or PQ rank-then-rerank
+(``SearchConfig.precision``, ``kernels.precision``).
 
 A wave of B queries climbs at once.  Each lane keeps a beam of e (ids,
 dists, expanded flags) and a per-lane open-addressing hash of every vertex
@@ -25,6 +26,7 @@ from repro_torch.core import segments
 from repro_torch.core.graph import KNNGraph
 from repro_torch.kernels import expand as expand_lib
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import precision as precision_lib
 
 
 def auto_hash_slots(beam: int, max_iters: int) -> int:
@@ -40,7 +42,7 @@ def auto_hash_slots(beam: int, max_iters: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SearchConfig:
-    """EHC search configuration (fp32, random entry points)."""
+    """EHC search configuration (random entry points)."""
 
     k: int = 10  # result size; also the improvement-termination horizon
     beam: int = 64  # beam width e >= k
@@ -52,10 +54,15 @@ class SearchConfig:
     use_reverse: bool = True  # False = plain HC: G[r] only
     use_lgd_mask: bool = False  # λ <= mean-λ expansion filter (Alg. 3)
     hard_diversify: bool = False  # ablation: skip any λ > 0
+    precision: str = "fp32"  # "fp32" | "bf16" | "int8" | "pq"
+    rerank_factor: int = 4  # pq: exact re-rank width = rerank_factor * k
 
     def __post_init__(self):
         if self.beam < self.k:
             raise ValueError(f"beam must be >= k, got beam={self.beam} k={self.k}")
+        precision_lib.validate_precision(self.precision)
+        if self.rerank_factor < 1:
+            raise ValueError(f"rerank_factor must be >= 1, got {self.rerank_factor}")
         if self.hash_slots is None:
             object.__setattr__(
                 self, "hash_slots", auto_hash_slots(self.beam, self.max_iters)
@@ -145,14 +152,17 @@ def _prepare_expansion(g: KNNGraph, st: SearchState, cfg: SearchConfig):
 
 
 def step(
-    g: KNNGraph, x: torch.Tensor, q: torch.Tensor, st: SearchState, cfg: SearchConfig
+    g: KNNGraph, x: torch.Tensor, q: torch.Tensor, st: SearchState, cfg: SearchConfig,
+    enc: Optional[precision_lib.EncodedData] = None,
 ) -> SearchState:
     """One EHC iteration for every lane (done lanes are left unchanged).
-    The hash in ``st`` is updated in place."""
+    The hash in ``st`` is updated in place; ``enc`` is the compressed table
+    matching ``cfg.precision``."""
     cands, beam_exp = _prepare_expansion(g, st, cfg)
     beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, comps = ops.expand_step(
         q, x, cands, st.beam_ids, st.beam_dist, beam_exp, st.vis_ids, st.vis_dist,
         metric=cfg.metric, hash_probes=cfg.hash_probes, sq_norms=g.sq_norms,
+        enc=enc, precision=cfg.precision, rerank_keep=cfg.rerank_factor * cfg.k,
     )
     fill = _hash_fill(vis_ids)
     # every computed distance must land in the D array; a fill delta below
@@ -186,7 +196,7 @@ def random_seeds(
 
 def init_state(
     g: KNNGraph, x: torch.Tensor, q: torch.Tensor, seeds: torch.Tensor,
-    cfg: SearchConfig,
+    cfg: SearchConfig, enc: Optional[precision_lib.EncodedData] = None,
 ) -> SearchState:
     """Pre-loop state: the (B, p) entry points deduped, masked to alive
     allocated rows, scored, hashed and merged into an empty beam (Alg. 1
@@ -199,7 +209,13 @@ def init_state(
     in_range = (seeds >= 0) & (seeds < g.n_valid)
     alive = g.alive[seeds.clamp(0, g.capacity - 1).long()]
     seeds = torch.where(in_range & alive, seeds, -1)
-    seed_dist = ops.gather_distance(q, x, seeds, cfg.metric, sq_norms=g.sq_norms)
+    # seed distances enter the beam and the hash: the engine's own under
+    # bf16/int8, exact under pq (ADC scores never enter the hash)
+    seed_precision = cfg.precision if cfg.precision in ("bf16", "int8") else "fp32"
+    seed_dist = ops.gather_distance(
+        q, x, seeds, cfg.metric, sq_norms=g.sq_norms,
+        enc=enc if seed_precision != "fp32" else None, precision=seed_precision,
+    )
 
     vis_ids = torch.full((B, H), -1, dtype=torch.int32, device=dev)
     vis_dist = torch.full((B, H), float("inf"), dtype=torch.float32, device=dev)
@@ -236,22 +252,33 @@ def search(
     *,
     seeds: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    enc: Optional[precision_lib.EncodedData] = None,
     device=None,
 ) -> SearchResult:
     """Batched EHC search of queries q (B, d) against graph g over x (n, d).
 
     Entry points are the injected ``seeds`` (B, p) when given, else p
-    uniform draws from ``generator``.  ``device`` is where to run (None: the
-    card, raising without one)."""
+    uniform draws from ``generator``.  ``enc`` is the compressed table
+    matching ``cfg.precision`` (ignored for fp32); it is encoded from ``x``
+    when absent, int8 reusing ``g.row_scale`` when it covers every row of
+    ``x``.  ``device`` is where to run (None: the card, raising without
+    one)."""
     dev = device_lib.resolve(device)
     g, x, q = g.to(dev), x.to(dev), q.to(dev)
+    if cfg.precision != "fp32":
+        if enc is None:
+            reuse = cfg.precision == "int8" and g.row_scale.shape[0] == x.shape[0]
+            enc = precision_lib.encode_dataset(
+                x, cfg.precision, row_scale=g.row_scale if reuse else None
+            )
+        enc = enc.to(dev)
     if seeds is None:
         seeds = random_seeds(q.shape[0], cfg.n_seeds, g.n_valid, generator, dev)
-    st = init_state(g, x, q, seeds, cfg)
+    st = init_state(g, x, q, seeds, cfg, enc)
     for _ in range(cfg.max_iters):
         if bool(st.done.all()):  # the loop's one host read
             break
-        st = step(g, x, q, st, cfg)
+        st = step(g, x, q, st, cfg, enc)
     return SearchResult(
         ids=st.beam_ids[:, : cfg.k],
         dists=st.beam_dist[:, : cfg.k],

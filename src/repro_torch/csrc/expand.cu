@@ -1,7 +1,9 @@
 // fused_expand: one whole EHC iteration per query lane.
 //
 // Replaces the TPU kernel repro/kernels/expand.py fused_expand (:317,
-// pallas_call at :412) with its body _fused_expand_kernel (:252): phase 1
+// pallas_call at :412), in its fp32, bf16 and int8 forms (x_eng/quantized at
+// :367-368, the gathered scale operand at :396-398), with its body
+// _fused_expand_kernel (:252): phase 1
 // blocked_gather_phase (gather_dist.py:157), phase 2 _probe_mask_record_merge
 // (expand.py:139).  Steps, per lane:
 //   1. classify each candidate against the visited hash (Knuth hash,
@@ -22,16 +24,18 @@
 // row would not fit the 227 KB of shared memory.  The TPU kernel kept the
 // row in VMEM instead.
 //
-// Bound on an H100: bytes.  Per lane: the fresh candidate rows (d floats
-// each), C·P probed hash ids, the recorded (id, dist) pairs, the beam in and
-// out.  At B = 4096, C = 60, P = 8, d = 128 about 126 MB of rows plus 8 MB of
-// probes: ~40 us at 3.35 TB/s.
+// Bound on an H100: bytes.  Per lane: the fresh candidate rows (d elements
+// of the table's type each, plus a 4-byte scale for int8), C·P probed hash
+// ids, the recorded (id, dist) pairs, the beam in and out.  At B = 4096,
+// C = 60, P = 8, d = 128 about 126 MB of fp32 rows (63 MB bf16, 32 MB int8)
+// plus 8 MB of probes: ~40 us at 3.35 TB/s for fp32.
 //
 // Design: one CTA of 128 threads per lane.  Candidate ids, flags, slots,
 // distances and the (e + C)-entry merge live in shared memory; one thread per
 // candidate classifies, one warp per fresh candidate reads its row (one
-// coalesced 512-byte read at d = 128), one thread per merge entry computes its
-// rank by counting (O((e + C)²) compares, 10^4 at e + C = 100), and the
+// coalesced 512-byte read at d = 128 for fp32), one thread per merge entry
+// computes its rank by counting (O((e + C)²) compares, 10^4 at e + C =
+// 100), and the
 // same-slot winner is elected by an O(C²) scan.  __syncthreads() separates
 // every read phase of the hash from its write phase.
 
@@ -48,15 +52,17 @@ __device__ __forceinline__ int total_order_key(float v) {
   return b < 0 ? (b ^ 0x7FFFFFFF) : b;
 }
 
+template <typename T>
 __global__ void fused_expand_kernel(
-    const float* __restrict__ q, const float* __restrict__ x,
-    const float* __restrict__ sq_norms, const int* __restrict__ cands,
+    const float* __restrict__ q, const T* __restrict__ x,
+    const float* __restrict__ sq_norms, const float* __restrict__ row_scale,
+    const int* __restrict__ cands,
     const int* __restrict__ beam_ids, const float* __restrict__ beam_dist,
     const uint8_t* __restrict__ beam_exp, int* __restrict__ vis_ids,
     float* __restrict__ vis_dist, int* __restrict__ out_ids,
     float* __restrict__ out_dist, uint8_t* __restrict__ out_exp,
     int* __restrict__ comps, int C, int e, int H, int P, int d, int metric,
-    bool vec4) {
+    bool vec) {
   const int n = e + C;
   const int d4 = (d + 3) >> 2;
   extern __shared__ float4 smem4[];
@@ -122,7 +128,8 @@ __global__ void fused_expand_kernel(
     float v = INFINITY;
     if (fresh[c]) {
       const int id = cid[c];
-      v = warp_row_distance(metric, qs, qn, x, id, d, needs_norm ? sq_norms[id] : 0.f, vec4);
+      v = warp_row_distance<T>(metric, qs, qn, x, id, d, needs_norm ? sq_norms[id] : 0.f,
+                               gathered_scale(row_scale, id), vec);
     }
     if (lane == 0) cdist[c] = v;
   }
@@ -204,30 +211,51 @@ __global__ void fused_expand_kernel(
   }
 }
 
-}  // namespace repro_torch
-
-extern "C" int launch_fused_expand(
-    const void* q, const void* x, const void* sq_norms, const void* cands,
-    const void* beam_ids, const void* beam_dist, const void* beam_exp,
-    void* vis_ids, void* vis_dist, void* out_ids, void* out_dist, void* out_exp,
-    void* comps, int B, int C, int e, int H, int P, int d, int metric, void* stream) {
-  using namespace repro_torch;
+template <typename T>
+void launch_expand(const void* q, const void* x, const void* sq_norms, const void* row_scale,
+                   const void* cands, const void* beam_ids, const void* beam_dist,
+                   const void* beam_exp, void* vis_ids, void* vis_dist, void* out_ids,
+                   void* out_dist, void* out_exp, void* comps, int B, int C, int e, int H,
+                   int P, int d, int metric, cudaStream_t stream) {
   const int n = e + C;
   const int d4 = (d + 3) / 4;
   const size_t smem = sizeof(float) * (size_t)(d4 * 4 + C + n + e) +
                       sizeof(int) * (size_t)(2 * C + 2 * n + e) +
                       (size_t)(2 * C + n + e);
-  const bool vec4 = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(fused_expand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(fused_expand_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   }
+  fused_expand_kernel<T><<<B, kExpandThreads, smem, stream>>>(
+      (const float*)q, (const T*)x, (const float*)sq_norms, (const float*)row_scale,
+      (const int*)cands, (const int*)beam_ids, (const float*)beam_dist,
+      (const uint8_t*)beam_exp, (int*)vis_ids, (float*)vis_dist, (int*)out_ids,
+      (float*)out_dist, (uint8_t*)out_exp, (int*)comps, C, e, H, P, d, metric,
+      vec_loads<T>(x, d));
+}
+
+}  // namespace repro_torch
+
+// dtype: kF32, kBF16 or kI8 (row_distance.cuh); row_scale is the (n,) int8
+// scale table, NULL for fp32 and bf16.
+extern "C" int launch_fused_expand(
+    const void* q, const void* x, const void* sq_norms, const void* row_scale,
+    const void* cands, const void* beam_ids, const void* beam_dist, const void* beam_exp,
+    void* vis_ids, void* vis_dist, void* out_ids, void* out_dist, void* out_exp,
+    void* comps, int B, int C, int e, int H, int P, int d, int metric, int dtype,
+    void* stream) {
+  using namespace repro_torch;
   if (B > 0) {
-    fused_expand_kernel<<<B, kExpandThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)x, (const float*)sq_norms, (const int*)cands,
-        (const int*)beam_ids, (const float*)beam_dist, (const uint8_t*)beam_exp,
-        (int*)vis_ids, (float*)vis_dist, (int*)out_ids, (float*)out_dist,
-        (uint8_t*)out_exp, (int*)comps, C, e, H, P, d, metric, vec4);
+    cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_EXPAND_ARGS q, x, sq_norms, row_scale, cands, beam_ids, beam_dist, beam_exp, \
+    vis_ids, vis_dist, out_ids, out_dist, out_exp, comps, B, C, e, H, P, d, metric, st
+    switch (dtype) {
+      case kF32: launch_expand<float>(REPRO_EXPAND_ARGS); break;
+      case kBF16: launch_expand<__nv_bfloat16>(REPRO_EXPAND_ARGS); break;
+      case kI8: launch_expand<int8_t>(REPRO_EXPAND_ARGS); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef REPRO_EXPAND_ARGS
   }
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,12 @@
 // _gather_dist_kernel and _fused_expand_kernel.  Keeping one routine keeps
 // the two kernels' distances identical per comparison, as in the reference.
 //
-// One warp computes one candidate row.  Each lane reads float4 slices of the
-// row (one load per lane at d = 128) and the warp reduces with xor shuffles,
-// which leave the same sum in every lane.  The formula is block_distance's:
+// One warp computes one candidate row.  Each lane reads 16-byte slices of
+// the row (4 fp32, 8 bf16 or 16 int8 values; one load per lane for fp32 at
+// d = 128) and the warp reduces with xor shuffles, which leave the same sum
+// in every lane.  The row may be stored fp32, bf16 or int8 (the reference's
+// reduced-precision tiles, gather_dist.py:295-310); it is widened to fp32
+// and accumulated in fp32.  The formula is block_distance's:
 //   l2   max(‖q‖² + ‖x‖² − 2 q·x, 0), ‖x‖² from the graph's sq_norms cache
 //   ip   −q·x
 //   cos  1 − q·x / max(√‖x‖², 1e-12), q normalized by the wrapper
@@ -16,9 +19,12 @@
 // and an id < 0 (padding) gives +inf.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro_torch {
 
@@ -30,6 +36,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One element's term.  The dot product's multiply and the running sum
+// (warp_row_distance) are rounded one by one (__fmul_rn, __fadd_rn), never
+// contracted into an FMA: whether nvcc contracts depends on how it
+// specializes the metric switch, and the kernels' results must not.
 __device__ __forceinline__ float metric_term(int metric, float qv, float xv) {
   if (metric == kL1) return fabsf(xv - qv);
   if (metric == kChi2) {
@@ -37,7 +47,7 @@ __device__ __forceinline__ float metric_term(int metric, float qv, float xv) {
     const float den = xv + qv;
     return den > 1e-12f ? diff * diff / fmaxf(den, 1e-12f) : 0.f;
   }
-  return qv * xv;
+  return __fmul_rn(qv, xv);
 }
 
 // Squared norm of the query held in shared memory; every lane of the calling
@@ -49,33 +59,66 @@ __device__ __forceinline__ float warp_sq_norm(const float* q, int d) {
   return warp_sum(acc);
 }
 
+// Storage types of the candidate table: float, __nv_bfloat16 or int8_t,
+// widened to float only through the intrinsics.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
+
+// Elements of T in one 16-byte load: 4 float, 8 bf16, 16 int8.
+template <typename T>
+constexpr int kVecElems = 16 / (int)sizeof(T);
+
+// Per-row int8 dequantization scale of row `id`: the graph's row_scale, 1
+// at padding and where the scale is <= 0 (gathered_row_scales,
+// gather_dist.py:144).  fp32 and bf16 tables take no scale.
+__device__ __forceinline__ float gathered_scale(const float* __restrict__ row_scale, int id) {
+  if (row_scale == nullptr || id < 0) return 1.f;
+  const float s = row_scale[id];
+  return s > 0.f ? s : 1.f;
+}
+
 // Distance from the query q (shared memory, d floats, 16-byte aligned) to
-// row `id` of x (n, d).  `vec4` (d % 4 == 0 and x 16-byte aligned, decided
-// by the host launcher) selects the float4 loads.  Must be called by all 32
+// row `id` of x (n, d) stored as T.  `vec` (d a multiple of kVecElems<T> and
+// x 16-byte aligned, decided by the host launcher) selects 16-byte loads.
+// For int8, `xscale` multiplies the warp's dot sum (l2/ip/cos) or each
+// dequantized element (l1/chi2), one __fmul_rn each, as block_distance does
+// (gather_dist.py:97-105); other types ignore it.  Must be called by all 32
 // lanes of a warp with the same arguments; returns the same value in every
 // lane.
+template <typename T>
 __device__ __forceinline__ float warp_row_distance(
-    int metric, const float* q, float qn, const float* __restrict__ x,
-    int id, int d, float xn, bool vec4) {
+    int metric, const float* q, float qn, const T* __restrict__ x,
+    int id, int d, float xn, float xscale, bool vec) {
   if (id < 0) return INFINITY;
+  constexpr bool kScaled = std::is_same<T, int8_t>::value;
+  const bool scale_elems = kScaled && (metric == kL1 || metric == kChi2);
   const int lane = threadIdx.x & 31;
-  const float* row = x + (int64_t)id * d;
+  const T* row = x + (int64_t)id * d;
   float acc = 0.f;
-  if (vec4) {
-    const float4* row4 = reinterpret_cast<const float4*>(row);
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    for (int j = lane; j < (d >> 2); j += 32) {
-      const float4 xv = __ldg(row4 + j);
-      const float4 qv = q4[j];
-      acc += metric_term(metric, qv.x, xv.x);
-      acc += metric_term(metric, qv.y, xv.y);
-      acc += metric_term(metric, qv.z, xv.z);
-      acc += metric_term(metric, qv.w, xv.w);
+  if (vec) {
+    constexpr int E = kVecElems<T>;
+    const uint4* row16 = reinterpret_cast<const uint4*>(row);
+    for (int j = lane; j < d / E; j += 32) {
+      const uint4 raw = __ldg(row16 + j);
+      const T* xv = reinterpret_cast<const T*>(&raw);
+      const float* qv = q + j * E;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float v = to_float(xv[e]);
+        if (scale_elems) v = __fmul_rn(v, xscale);
+        acc = __fadd_rn(acc, metric_term(metric, qv[e], v));
+      }
     }
   } else {
-    for (int j = lane; j < d; j += 32) acc += metric_term(metric, q[j], __ldg(row + j));
+    for (int j = lane; j < d; j += 32) {
+      float v = to_float(row[j]);
+      if (scale_elems) v = __fmul_rn(v, xscale);
+      acc = __fadd_rn(acc, metric_term(metric, q[j], v));
+    }
   }
-  const float s = warp_sum(acc);
+  float s = warp_sum(acc);
+  if (kScaled && !scale_elems) s = __fmul_rn(s, xscale);
   switch (metric) {
     // _rn intrinsics: two roundings, as the plain version, never an FMA
     case kL2: return fmaxf(__fsub_rn(__fadd_rn(qn, xn), __fmul_rn(2.f, s)), 0.f);
@@ -84,5 +127,14 @@ __device__ __forceinline__ float warp_row_distance(
     default: return s;  // dot, l1, chi2
   }
 }
+
+// Whether a table of T at `x` with row length d takes 16-byte loads.
+template <typename T>
+inline bool vec_loads(const void* x, int d) {
+  return d % kVecElems<T> == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+// Storage-type codes shared by the launchers and the Python wrappers.
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 }  // namespace repro_torch

@@ -11,6 +11,8 @@ cross-package tests feed both packages the same numpy arrays instead.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -26,15 +28,22 @@ def clustered(
     n_clusters: int = 256,
     intrinsic_dim: int = 16,
     noise: float = 0.05,
+    sample_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Clusters on a low-dimensional linear manifold plus small noise."""
-    dev = generator.device
+    """Clusters on a low-dimensional linear manifold plus small noise.
 
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, device=dev)
+    The manifold and the cluster centers come from ``generator``; the rows'
+    clusters and noise from ``sample_generator`` when given (else from
+    ``generator`` too), so rows drawn with the same ``generator`` seed and
+    another ``sample_generator`` are held-out samples of the same mixture."""
+    dev = generator.device
+    sampler = generator if sample_generator is None else sample_generator
+
+    def normal(*shape, g=generator):
+        return torch.randn(shape, generator=g, device=dev)
 
     basis = normal(intrinsic_dim, d) / d ** 0.5
     centers = normal(n_clusters, intrinsic_dim)
-    assign = torch.randint(0, n_clusters, (n,), generator=generator, device=dev)
-    z = centers[assign] + normal(n, intrinsic_dim) * 0.15
-    return (z @ basis + noise * normal(n, d)).float()
+    assign = torch.randint(0, n_clusters, (n,), generator=sampler, device=dev)
+    z = centers[assign] + normal(n, intrinsic_dim, g=sampler) * 0.15
+    return (z @ basis + noise * normal(n, d, g=sampler)).float()

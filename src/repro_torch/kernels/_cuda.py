@@ -25,7 +25,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Iterable, Sequence
+from typing import Iterable, Optional, Sequence
 
 import torch
 
@@ -38,9 +38,20 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# Kernel launches on the card, by kernel name.  Each wrapper adds one where
-# it launches its kernel and nowhere else; the plain versions never count.
-LAUNCHES = {"gather_distance": 0, "fused_expand": 0, "pairwise_distance": 0}
+# Kernel launches on the card, by kernel name; a bf16 or int8 variant counts
+# under its own name.  Each wrapper adds one where it launches its kernel and
+# nowhere else; the plain versions never count.
+LAUNCHES = {
+    "gather_distance": 0, "gather_distance.bf16": 0, "gather_distance.int8": 0,
+    "fused_expand": 0, "fused_expand.bf16": 0, "fused_expand.int8": 0,
+    "pairwise_distance": 0,
+}
+
+# candidate-table storage type -> (the kernels' DType code in
+# csrc/row_distance.cuh, the suffix of the variant's launch count)
+TABLE_DTYPES = {
+    torch.float32: (0, ""), torch.bfloat16: (1, ".bf16"), torch.int8: (2, ".int8"),
+}
 
 _loaded: dict = {}
 
@@ -125,8 +136,10 @@ def launch(kernel: str, fn: ctypes._CFuncPtr, device: torch.device, *args) -> No
     LAUNCHES[kernel] += 1
 
 
-def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
-    """Kernels take contiguous CUDA tensors on one device, nothing else."""
+def require_cuda(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Kernels take contiguous CUDA tensors on one device, nothing else
+    (None stands for an operand the kernel does not read)."""
+    tensors = [t for t in tensors if t is not None]
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
@@ -135,5 +148,23 @@ def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{kernel}: needs contiguous tensors")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's device pointer; NULL for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def table_operands(kernel: str, x: torch.Tensor, sq_norms, row_scale):
+    """Check a candidate table and its int8 operands: returns (the kernel's
+    dtype code, the variant's launch-count name, the contiguous float32
+    scale table or None).  int8 needs both the exact ``sq_norms`` cache and
+    the ``row_scale`` table (the reference's gather_dist.py:295, :306-308)."""
+    if x.dtype not in TABLE_DTYPES:
+        raise ValueError(f"{kernel}: x must be float32, bfloat16 or int8, got {x.dtype}")
+    code, suffix = TABLE_DTYPES[x.dtype]
+    if x.dtype != torch.int8:
+        return code, kernel + suffix, None
+    if sq_norms is None:
+        raise ValueError(f"{kernel}: int8 tables need the exact sq_norms cache")
+    if row_scale is None:
+        raise ValueError(f"{kernel}: int8 tables need the row_scale table")
+    return code, kernel + suffix, row_scale.float().contiguous()

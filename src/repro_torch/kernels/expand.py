@@ -5,7 +5,9 @@ version ``expand_reference`` and the hash/beam primitives both follow
 One EHC iteration per query lane: classify the candidate ids against the
 lane's visited hash (the paper's D array), compute distances to the fresh
 ones, record them, and merge them into the beam top-e.  Returns
-``(beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, comps)``.
+``(beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, comps)``.  The
+distances may read a bf16 or int8 table (``enc``/``precision``); PQ never
+reaches this layer.
 
 Both the kernel and the plain version update the visited hash ``vis_ids`` /
 ``vis_dist`` IN PLACE and return the same tensors: the kernel touches only
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.kernels import _cuda, ref
 from repro_torch.kernels.gather_dist import KERNEL_METRIC, kernel_operands
+from repro_torch.kernels.precision import EncodedData
 
 _KNUTH = 2654435761
 _MASK32 = 0xFFFFFFFF
@@ -142,30 +145,52 @@ def _probe_mask_record_merge(
     return beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, comps
 
 
+def _refuse_pq(precision: str) -> None:
+    if precision == "pq":
+        # only exact distances may enter the hash and the beam; the ADC
+        # prerank composes one layer up, in kernels.ops.expand_step
+        raise ValueError("expansion kernels take fp32/bf16/int8; pq is an ops-level prerank")
+
+
 def expand_reference(
     q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
     *, metric: str = "l2", probes: int = 8, sq_norms: Optional[torch.Tensor] = None,
+    enc: Optional[EncodedData] = None, precision: str = "fp32",
 ):
     """The plain version of ``fused_expand`` (same signature and returns)."""
+    _refuse_pq(precision)
     present, _, _ = hash_probe_state(vis_ids, cands, probes)
     fresh_ids = torch.where((cands >= 0) & ~present, cands, -1)
-    dists = ref.gather_distance(q, x, fresh_ids, metric, sq_norms=sq_norms)
+    dists = ref.gather_distance(
+        q, x, fresh_ids, metric, sq_norms=sq_norms, enc=enc, precision=precision
+    )
     return _probe_mask_record_merge(
         cands, dists, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, probes
     )
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 13 + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 14 + [_I] * 8 + [_P]
 
 
 def fused_expand(
     q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
     *, metric: str = "l2", probes: int = 8, sq_norms: Optional[torch.Tensor] = None,
+    enc: Optional[EncodedData] = None, precision: str = "fp32",
 ):
     """Launch the CUDA kernel (one CTA per lane).  CUDA tensors only; the
-    hash tensors must be contiguous int32/float32 and are updated in place."""
+    hash tensors must be contiguous int32/float32 and are updated in place.
+
+    With ``precision="bf16"``/``"int8"`` and ``enc`` the matching
+    ``EncodedData``, the distances read the compressed table (int8 with its
+    scales) through that variant of the kernel, counted under its own name
+    (``fused_expand.bf16``, ``fused_expand.int8``)."""
+    _refuse_pq(precision)
     q, sq = kernel_operands(q, x, metric, sq_norms)
+    row_scale = None
+    if enc is not None and precision != "fp32":
+        x, row_scale = enc.data, enc.scale  # the scale is None but for int8
+    code, name, scale = _cuda.table_operands("fused_expand", x, sq, row_scale)
     x = x.contiguous()
     cands = cands.to(torch.int32).contiguous()
     beam_ids = beam_ids.to(torch.int32).contiguous()
@@ -173,8 +198,6 @@ def fused_expand(
     beam_exp = beam_exp.to(torch.bool).contiguous()
     if vis_ids.dtype != torch.int32 or vis_dist.dtype != torch.float32:
         raise ValueError("fused_expand: the hash is (int32 ids, float32 dists)")
-    if x.dtype != torch.float32:
-        raise ValueError(f"fused_expand: x must be float32, got {x.dtype}")
     B, C = cands.shape
     e = beam_ids.shape[1]
     H = vis_ids.shape[1]
@@ -184,12 +207,12 @@ def fused_expand(
     out_dist = torch.empty_like(beam_dist)
     out_exp = torch.empty_like(beam_exp)
     comps = torch.empty(B, dtype=torch.int32, device=x.device)
-    tensors = (q, x, sq, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
+    tensors = (q, x, sq, scale, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
                out_ids, out_dist, out_exp, comps)
     _cuda.require_cuda("fused_expand", *tensors)
     fn = _cuda.function("expand", "launch_fused_expand", _ARGTYPES)
     _cuda.launch(
-        "fused_expand", fn, x.device, *(_cuda.ptr(t) for t in tensors),
-        B, C, e, H, probes, x.shape[1], KERNEL_METRIC[metric],
+        name, fn, x.device, *(_cuda.ptr(t) for t in tensors),
+        B, C, e, H, probes, x.shape[1], KERNEL_METRIC[metric], code,
     )
     return out_ids, out_dist, out_exp, vis_ids, vis_dist, comps

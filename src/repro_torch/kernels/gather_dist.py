@@ -2,9 +2,10 @@
 version (counterpart of ``repro.kernels.gather_dist``).
 
 ``gather_distance(q, x, idx)`` gives, for each query b, the distances to the
-rows ``x[idx[b, :]]``, +inf where an id is negative.  The CUDA kernel runs one
-CTA per query and one warp per candidate row, through the same device routine
-the fused expansion uses (``csrc/row_distance.cuh``).  Its plain version is
+rows ``x[idx[b, :]]``, +inf where an id is negative; ``x`` is stored fp32,
+bf16 or int8.  The CUDA kernel runs one CTA per query and one warp per
+candidate row, through the same device routine the fused expansion uses
+(``csrc/row_distance.cuh``).  Its plain version is
 ``kernels.ref.gather_distance``: the CPU path and the kernel's oracle.
 """
 
@@ -23,7 +24,7 @@ from repro_torch.kernels import _cuda
 KERNEL_METRIC = {"l2": 0, "ip": 1, "cosine": 2, "l1": 4, "chi2": 5}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
 
 
 def kernel_operands(q, x, metric, sq_norms):
@@ -46,21 +47,28 @@ def gather_distance(
     metric: str = "l2",
     *,
     sq_norms: Optional[torch.Tensor] = None,
+    row_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel: (b, d) float32, (n, d) float32, (b, c) int32
-    -> (b, c) float32.  CUDA tensors only."""
+    """Launch the CUDA kernel: (b, d) float32, (n, d) table, (b, c) int32
+    -> (b, c) float32.  CUDA tensors only.
+
+    ``x`` is the raw float32 rows or an encoded table
+    (``precision.EncodedData.data``): bfloat16, or int8 with its ``row_scale``
+    table and the exact ``sq_norms`` cache.  Each storage type is its own
+    instantiation of the kernel and counts its launches under its own name
+    (``gather_distance``, ``gather_distance.bf16``, ``gather_distance.int8``).
+    """
+    code, name, scale = _cuda.table_operands("gather_distance", x, sq_norms, row_scale)
     q, sq = kernel_operands(q, x, metric, sq_norms)
     idx = idx.to(torch.int32).contiguous()
     x = x.contiguous()
-    if x.dtype != torch.float32:
-        raise ValueError(f"gather_distance: x must be float32, got {x.dtype}")
     B, C = idx.shape
     out = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    _cuda.require_cuda("gather_distance", q, x, idx, sq, out)
+    _cuda.require_cuda("gather_distance", q, x, idx, sq, scale, out)
     fn = _cuda.function("gather_dist", "launch_gather_distance", _ARGTYPES)
     _cuda.launch(
-        "gather_distance", fn, x.device,
-        _cuda.ptr(q), _cuda.ptr(x), _cuda.ptr(sq), _cuda.ptr(idx), _cuda.ptr(out),
-        B, C, x.shape[1], KERNEL_METRIC[metric],
+        name, fn, x.device,
+        _cuda.ptr(q), _cuda.ptr(x), _cuda.ptr(sq), _cuda.ptr(scale), _cuda.ptr(idx),
+        _cuda.ptr(out), B, C, x.shape[1], KERNEL_METRIC[metric], code,
     )
     return out

@@ -5,7 +5,8 @@ The tensor's device decides, and nothing else: a tensor on the CPU takes the
 plain PyTorch version; a tensor on a CUDA device takes the hand-written
 kernel, which launches or raises.  There is no engine option and no
 fallback.  Callers in ``repro_torch.core`` reach the kernels only through
-these functions, by module attribute (``ops.expand_step(...)``).
+these functions, by module attribute (``ops.expand_step(...)``).  The PQ
+rank-then-rerank composes here, around the exact fp32 expansion.
 
 Launch counts: ``launch_counts()`` reads, and ``reset_launch_counts()``
 zeroes, the per-kernel integers the wrappers bump where they launch.
@@ -21,6 +22,7 @@ from repro_torch.kernels import _cuda, ref
 from repro_torch.kernels import distance as _distance
 from repro_torch.kernels import expand as _expand
 from repro_torch.kernels import gather_dist as _gather_dist
+from repro_torch.kernels import precision as precision_lib
 
 
 def launch_counts() -> dict:
@@ -51,22 +53,82 @@ def gather_distance(
     metric: str = "l2",
     *,
     sq_norms: Optional[torch.Tensor] = None,
+    enc: Optional[precision_lib.EncodedData] = None,
+    precision: str = "fp32",
 ) -> torch.Tensor:
-    """(b, d) queries vs rows x[idx] -> (b, c) float32; +inf at idx < 0."""
-    if x.is_cuda:
-        return _gather_dist.gather_distance(q, x, idx, metric, sq_norms=sq_norms)
-    return ref.gather_distance(q, x, idx, metric, sq_norms=sq_norms)
+    """(b, d) queries vs rows x[idx] -> (b, c) float32; +inf at idx < 0.
+
+    ``enc``/``precision`` select the candidate table: bf16 and int8 run that
+    variant of the kernel (or its plain version on the CPU); ``"pq"`` is the
+    plain ADC rank on either device, as in the reference (ADC has no TPU
+    kernel to port)."""
+    if enc is None or precision == "fp32":
+        enc, precision = None, "fp32"
+    if precision == "pq" or not x.is_cuda:
+        return ref.gather_distance(
+            q, x, idx, metric, sq_norms=sq_norms, enc=enc, precision=precision
+        )
+    return _gather_dist.gather_distance(
+        q, x if enc is None else enc.data, idx, metric, sq_norms=sq_norms,
+        row_scale=None if enc is None else enc.scale,
+    )
 
 
 def expand_step(
     q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
     *, metric: str = "l2", hash_probes: int = 8, sq_norms: Optional[torch.Tensor] = None,
+    enc: Optional[precision_lib.EncodedData] = None, precision: str = "fp32",
+    rerank_keep: int = 0,
 ):
     """One EHC expansion step; see ``kernels.expand``.  The visited hash is
-    updated in place."""
+    updated in place.
+
+    bf16/int8 read the compressed table inside the expansion.  ``"pq"`` runs
+    rank-then-rerank: the fresh candidates are ranked by ADC, the best
+    ``rerank_keep`` go through the exact fp32 expansion, and every fresh
+    candidate counts in ``comps``."""
+    if enc is None or precision == "fp32":
+        enc, precision = None, "fp32"
+    if precision == "pq":
+        if rerank_keep <= 0:
+            raise ValueError("pq expansion needs rerank_keep > 0")
+        return _pq_rank_then_rerank(
+            q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
+            metric=metric, hash_probes=hash_probes, sq_norms=sq_norms, enc=enc,
+            rerank_keep=rerank_keep,
+        )
     fn = _expand.fused_expand if x.is_cuda else _expand.expand_reference
     return fn(
         q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
-        metric=metric, probes=hash_probes, sq_norms=sq_norms,
+        metric=metric, probes=hash_probes, sq_norms=sq_norms, enc=enc, precision=precision,
     )
 
+
+def _pq_rank_then_rerank(
+    q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
+    *, metric, hash_probes, sq_norms, enc, rerank_keep,
+):
+    """ADC first-pass rank, then the exact fp32 expansion of the survivors
+    (the reference's ``ops._pq_rank_then_rerank``).
+
+    The prerank never touches the hash: fresh candidates are classified as
+    the expansion will classify them, ranked by ADC, and all but the
+    ``rerank_keep`` smallest scores (ties to the lower column) are masked to
+    -1.  Dropped candidates are recorded nowhere and may be found, and
+    charged, again later."""
+    keep = min(rerank_keep, cands.shape[1])
+    present, _, _ = _expand.hash_probe_state(vis_ids, cands, hash_probes)
+    fresh = (cands >= 0) & ~present
+    adc = ref.gather_distance(
+        q, x, torch.where(fresh, cands, -1), metric, sq_norms=sq_norms, enc=enc,
+        precision="pq",
+    )
+    sel = torch.sort(ref.sort_key(adc), dim=1, stable=True).indices[:, :keep]
+    survive = torch.zeros_like(fresh).scatter_(1, sel, True)
+    bi, bd, be, vi, vd, _ = expand_step(
+        q, x, torch.where(survive, cands, -1), beam_ids, beam_dist, beam_exp,
+        vis_ids, vis_dist, metric=metric, hash_probes=hash_probes, sq_norms=sq_norms,
+    )
+    # every fresh candidate cost one (ADC) evaluation; the exact re-ranks
+    # are a subset of them, not an addition
+    return bi, bd, be, vi, vd, fresh.sum(dim=1).to(torch.int32)

@@ -5,7 +5,9 @@ These are the CPU execution path and the oracle each CUDA kernel is held
 against on the card.  The gather distance uses the same norms-decomposed
 formula as the kernels (``‖q‖² + ‖x‖² − 2·q·x`` with ``‖x‖²`` from the
 graph-resident cache), so the kernel and its plain version agree bit for bit
-on integer-valued data and to float tolerance elsewhere.
+on integer-valued data and to float tolerance elsewhere.  Its compressed
+twin (``enc``/``precision``, ``kernels.precision``) reads bf16 or int8 rows,
+or ranks by PQ-ADC.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import metrics
+from repro_torch.core.graph import squared_norms
+from repro_torch.kernels import precision as precision_lib
 
 
 def pairwise_distance(
@@ -40,12 +44,19 @@ def gather_distance(
     metric: str = "l2",
     *,
     sq_norms: Optional[torch.Tensor] = None,
+    enc: Optional[precision_lib.EncodedData] = None,
+    precision: str = "fp32",
 ) -> torch.Tensor:
     """(b, d) queries vs rows x[idx] (b, c) -> (b, c) float32; +inf at idx < 0.
 
     ``sq_norms`` is the (n,) graph-resident ``‖x‖²`` cache; the gathered rows'
-    norms are derived when it is absent.
+    norms are derived when it is absent.  ``enc``/``precision`` select a
+    compressed candidate table; fp32 (or no ``enc``) reads ``x``.
     """
+    if enc is not None and precision != "fp32":
+        return _gather_distance_compressed(
+            q, x, idx, metric, sq_norms=sq_norms, enc=enc, precision=precision
+        )
     safe = idx.long().clamp(0, x.shape[0] - 1)
     cand = x[safe].float()  # (b, c, d)
     if metric in ("l2", "ip", "cosine"):
@@ -61,6 +72,41 @@ def gather_distance(
             else:
                 d = 1.0 - dots / xn.sqrt().clamp_min(1e-12)
     else:
+        d = metrics.row_terms(metric, q, cand)
+    return torch.where(idx >= 0, d, float("inf"))
+
+
+def _gather_distance_compressed(q, x, idx, metric, *, sq_norms, enc, precision):
+    """The bf16/int8/PQ-ADC twin of ``gather_distance``.  The ``‖x‖²`` term
+    always comes from the exact cache; int8 scales the dot for l2/ip/cosine
+    and each element for l1/chi2 (1 at zero scales)."""
+    precision_lib.validate_precision(precision)
+    sq_norms = squared_norms(x) if sq_norms is None else sq_norms
+    qf = metrics.normalize_rows(q) if metric == "cosine" else q.float()
+    if precision == "pq":
+        lut = precision_lib.adc_tables(qf, enc.codebook, metric)
+        return precision_lib.adc_gather(lut, enc.codes, idx, metric, sq_norms)
+    safe = idx.long().clamp(0, x.shape[0] - 1)
+    cand = enc.data[safe].float()  # (b, c, d): the compressed fetch
+    scale = None
+    if precision == "int8":
+        s = enc.scale.float()[safe]
+        scale = torch.where(s > 0, s, 1.0)
+    if metric in ("l2", "ip", "cosine"):
+        dots = (qf[:, None, :] * cand).sum(-1)
+        if scale is not None:
+            dots = dots * scale
+        xn = sq_norms.float()[safe]
+        if metric == "l2":
+            qn = (qf * qf).sum(-1, keepdim=True)
+            d = (qn + xn - 2.0 * dots).clamp_min(0.0)
+        elif metric == "ip":
+            d = -dots
+        else:
+            d = 1.0 - dots / xn.sqrt().clamp_min(1e-12)
+    else:
+        if scale is not None:
+            cand = cand * scale[..., None]
         d = metrics.row_terms(metric, q, cand)
     return torch.where(idx >= 0, d, float("inf"))
 

@@ -2,7 +2,8 @@
 graph recall scored against brute force.
 
     PYTHONPATH=src python -m repro_torch.launch.build_graph \\
-        --n 1000000 --d 128 --k 20 --wave 4096 --eval-sample 10000
+        --n 1000000 --d 128 --k 20 --wave 4096 --eval-sample 10000 \\
+        [--precision {fp32,bf16,int8,pq}]
 
 The build is the knn-lgd configuration with the flags' fields replaced, over
 ``clustered`` rows drawn from ``DATA_SEED``, with entry points drawn from
@@ -25,6 +26,7 @@ from repro_torch import device as device_lib
 from repro_torch.configs import knn_lgd
 from repro_torch.core import brute, construct
 from repro_torch.data import synthetic
+from repro_torch.kernels.precision import PRECISIONS
 
 DATA_SEED, BUILD_SEED = 7, 13
 
@@ -55,6 +57,9 @@ def main(argv=None):
     ap.add_argument("--metric", default="l2", choices=["l2", "ip", "cosine", "l1", "chi2"])
     ap.add_argument("--algo", default="lgd", choices=["lgd", "olg"])
     ap.add_argument("--wave", type=int, default=512)
+    ap.add_argument("--precision", default="fp32", choices=list(PRECISIONS),
+                    help="distance engine of the insertion searches: compressed "
+                         "tables (bf16/int8) or PQ rank-then-rerank")
     ap.add_argument("--eval-sample", type=int, default=0, metavar="M",
                     help="score graph recall@10 over M strided rows (0: skip)")
     ap.add_argument("--device", default=None, help="default: the card")
@@ -64,7 +69,7 @@ def main(argv=None):
     x = make_data(args.n, args.d, args.metric, dev)
     cfg = dataclasses.replace(
         knn_lgd.full_config(), k=args.k, metric=args.metric, wave=args.wave,
-        lgd=args.algo == "lgd", beam=max(40, args.k),
+        lgd=args.algo == "lgd", beam=max(40, args.k), precision=args.precision,
     )
     gen = torch.Generator(device=dev).manual_seed(BUILD_SEED)
     if dev.type == "cuda":
@@ -76,7 +81,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     c = construct.scanning_rate(stats, args.n)
     print(f"built {args.algo.upper()} graph on {dev}: n={args.n} d={args.d} "
-          f"k={args.k} metric={args.metric} wave={args.wave} in {dt:.3f}s "
+          f"k={args.k} metric={args.metric} wave={args.wave} "
+          f"precision={args.precision} in {dt:.3f}s "
           f"({(args.n / dt):.1f} rows/s), scanning rate c={c:.6f}")
     if args.eval_sample:
         r = graph_recall(x, g, min(10, args.k), args.metric, args.eval_sample)

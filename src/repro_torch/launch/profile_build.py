@@ -1,12 +1,12 @@
 """Where the time of an online build goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_build
+    PYTHONPATH=src python -m repro_torch.launch.profile_build [--precision P]
 
-1. The knn-lgd build (``configs.knn_lgd``) over its 10^6 rows, on the
-   launcher's data and seeds, with its wall time split between the insertion
-   searches, ``merge.merge_candidates`` and the rest of ``commit_wave``.
-   Each part is timed on the host clock between ``torch.cuda.synchronize()``
-   calls, once per wave.
+1. The knn-lgd build (``configs.knn_lgd``, at ``--precision``, default fp32)
+   over its 10^6 rows, on the launcher's data and seeds, with its wall time
+   split between the insertion searches, ``merge.merge_candidates`` and the
+   rest of ``commit_wave``.  Each part is timed on the host clock between
+   ``torch.cuda.synchronize()`` calls, once per wave.
 2. The same build over its first ``PROFILE_ROWS`` rows under
    ``torch.profiler``: the device's busy share of the profiled wall time,
    the device time per launch of each of the port's kernels, and the
@@ -17,7 +17,9 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import collections
+import dataclasses
 import time
 
 import torch
@@ -26,11 +28,13 @@ from repro_torch import device as device_lib
 from repro_torch.configs import knn_lgd
 from repro_torch.core import construct, merge
 from repro_torch.core import search as search_lib
+from repro_torch.kernels.precision import PRECISIONS
 from repro_torch.launch import build_graph
 
 PROFILE_ROWS = 200_000
 TOP = 20
-# the port's kernels by their CUDA function names (csrc/*.cu)
+# the port's kernels by their CUDA function names (csrc/*.cu); the name
+# covers every storage type a kernel is instantiated for
 PORT_KERNELS = ("gather_distance_kernel", "fused_expand_kernel", "pairwise_kernel")
 
 
@@ -69,9 +73,12 @@ def split_build(x: torch.Tensor, cfg: construct.BuildConfig) -> dict:
     return totals
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--precision", default="fp32", choices=list(PRECISIONS))
+    args = ap.parse_args(argv)
     dev = device_lib.resolve(None)
-    cfg = knn_lgd.full_config()
+    cfg = dataclasses.replace(knn_lgd.full_config(), precision=args.precision)
     n = knn_lgd.N_ROWS
     x = build_graph.make_data(n, knn_lgd.D, cfg.metric, dev)
     _build(x[:20_000], cfg)  # warm-up: kernel build and first launches
@@ -79,7 +86,7 @@ def main():
     t = split_build(x, cfg)
     commit_rest = t["commit_wave"] - t["merge_candidates"]
     other = t["build"] - t["search"] - t["commit_wave"]
-    print(f"build n={n} W={cfg.wave}: {t['build']:.3f} s = search {t['search']:.3f} s"
+    print(f"build n={n} W={cfg.wave} precision={cfg.precision}: {t['build']:.3f} s = search {t['search']:.3f} s"
           f" + merge_candidates {t['merge_candidates']:.3f} s + rest of commit_wave "
           f"{commit_rest:.3f} s + other {other:.3f} s")
 

@@ -8,7 +8,9 @@ installed:
 
 Distances agree to ``rtol=1e-5, atol=1e-3`` on Gaussian data (summation
 order differs); on integer-valued data every output of ``fused_expand``,
-hash included, is bit-identical.
+hash included, is bit-identical.  The bf16 and int8 variants are held
+against the compressed plain version the same way: bit for bit on integer
+data for l2/ip (and l1 at bf16), to tolerance elsewhere.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.core import brute, construct
 from repro_torch.kernels import distance, expand, gather_dist, ops, ref
+from repro_torch.kernels import precision as precision_lib
 
 torch.set_num_threads(2)
 
@@ -96,6 +99,7 @@ def test_build_kernels_match_plain_and_count_launches(card, monkeypatch):
     the plain versions; every kernel launched."""
     x = _data((3000, 16), 7, "l2", True, card)
     cfg = construct.BuildConfig(k=10, wave=256, beam=24, n_seeds=4, max_iters=30)
+    fp32_kernels = ("gather_distance", "fused_expand", "pairwise_distance")
 
     def seed_fn(wave, pos, W, n_valid):
         g = torch.Generator().manual_seed(wave)
@@ -105,13 +109,99 @@ def test_build_kernels_match_plain_and_count_launches(card, monkeypatch):
     g_k, st_k = construct.build(x, cfg, seed_fn=seed_fn, device=card)
     brute.brute_force_knn(x, x[:50], 10, device=card)
     counts = ops.launch_counts()
-    assert all(c > 0 for c in counts.values()), counts
-    monkeypatch.setattr(ops, "pairwise_distance", ref.pairwise_distance)
-    monkeypatch.setattr(ops, "gather_distance", ref.gather_distance)
-    monkeypatch.setattr(ops, "expand_step",
-                        lambda *a, hash_probes=8, **kw: expand.expand_reference(*a, probes=hash_probes, **kw))
+    assert all(counts[name] > 0 for name in fp32_kernels), counts
+    _route_plain(monkeypatch)
     g_p, st_p = construct.build(x, cfg, seed_fn=seed_fn, device=card)
     for name in ("nbr_ids", "nbr_dist", "nbr_lam", "rev_ids", "rev_lam", "rev_ptr", "alive"):
         assert torch.equal(getattr(g_k, name), getattr(g_p, name)), name
     assert int(st_k.n_comps) == int(st_p.n_comps)
     assert ops.launch_counts() == counts  # the plain build launched nothing
+
+
+def _route_plain(monkeypatch):
+    """Send ``ops`` to the plain versions for the rest of the test."""
+    def expand_step(*a, hash_probes=8, rerank_keep=0, **kw):
+        return expand.expand_reference(*a, probes=hash_probes, **kw)
+
+    monkeypatch.setattr(ops, "pairwise_distance", ref.pairwise_distance)
+    monkeypatch.setattr(ops, "gather_distance", ref.gather_distance)
+    monkeypatch.setattr(ops, "expand_step", expand_step)
+
+
+def _exact(metric, precision):
+    return metric in ("ip", "l2") or (metric == "l1" and precision == "bf16")
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("integer", [False, True])
+def test_gather_kernel_variants(card, metric, precision, integer):
+    """d=64 takes 16-byte loads at both widths, d=36 the scalar path for
+    int8 (and 16-byte bf16 loads only where d % 8 == 0)."""
+    for d in (64, 36):
+        x = _data((300, d), 1, metric, integer, card)
+        q = _data((9, d), 2, metric, integer, card)
+        sq = (x * x).sum(-1)
+        enc = precision_lib.encode_dataset(x, precision)
+        idx = torch.from_numpy(np.random.RandomState(2).randint(-1, 300, (9, 21))).int().to(card)
+        before = ops.launch_counts()[f"gather_distance.{precision}"]
+        got = gather_dist.gather_distance(q, enc.data, idx, metric, sq_norms=sq, row_scale=enc.scale)
+        want = ref.gather_distance(q, x, idx, metric, sq_norms=sq, enc=enc, precision=precision)
+        assert ops.launch_counts()[f"gather_distance.{precision}"] == before + 1
+        if integer and _exact(metric, precision):
+            assert torch.equal(got, want), f"d={d}"
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize(
+    "metric,precision", [("l2", "bf16"), ("l2", "int8"), ("ip", "int8"), ("l1", "bf16")])
+def test_expand_kernel_variants_bit_exact_on_integers(card, metric, precision):
+    B, C, e, n, H = 7, 20, 12, 60, 16
+    rng = np.random.RandomState(5)
+    x = _data((n, 32), 6, metric, True, card)
+    sq = (x * x).sum(-1)
+    enc = precision_lib.encode_dataset(x, precision)
+    cands = torch.from_numpy(rng.randint(-1, n, (B, C))).int().to(card)
+    state_k = state_p = (
+        torch.full((B, e), -1, dtype=torch.int32, device=card),
+        torch.full((B, e), float("inf"), device=card),
+        torch.ones((B, e), dtype=torch.bool, device=card),
+        torch.full((B, H), -1, dtype=torch.int32, device=card),
+        torch.full((B, H), float("inf"), device=card),
+    )
+    kw = dict(metric=metric, probes=4, sq_norms=sq, enc=enc, precision=precision)
+    for step in range(3):
+        got = expand.fused_expand(x[:B], x, cands, *state_k[:3],
+                                  *(t.clone() for t in state_k[3:]), **kw)
+        want = expand.expand_reference(x[:B], x, cands, *state_p[:3],
+                                       *(t.clone() for t in state_p[3:]), **kw)
+        for name, a, b in zip(FIELDS, got, want):
+            assert torch.equal(a, b), f"step {step} {name}"
+        state_k, state_p = got[:5], want[:5]
+        cands = torch.from_numpy(rng.randint(-1, n, (B, C))).int().to(card)
+
+
+@pytest.mark.parametrize("precision", ["int8", "bf16"])
+def test_compressed_build_kernels_match_plain(card, monkeypatch, precision):
+    """A small integer build at bf16/int8: identical graphs through the
+    variant kernels and through the plain versions."""
+    x = _data((3000, 16), 7, "l2", True, card)
+    cfg = construct.BuildConfig(k=10, wave=256, beam=24, n_seeds=4, max_iters=30,
+                                precision=precision)
+
+    def seed_fn(wave, pos, W, n_valid):
+        g = torch.Generator().manual_seed(wave)
+        return torch.randint(0, max(n_valid, 1), (W, cfg.n_seeds), generator=g)
+
+    ops.reset_launch_counts()
+    g_k, st_k = construct.build(x, cfg, seed_fn=seed_fn, device=card)
+    counts = ops.launch_counts()
+    for name in ("gather_distance", "fused_expand"):
+        assert counts[f"{name}.{precision}"] > 0 and counts[name] == 0, counts
+    _route_plain(monkeypatch)
+    g_p, st_p = construct.build(x, cfg, seed_fn=seed_fn, device=card)
+    for name in ("nbr_ids", "nbr_dist", "nbr_lam", "rev_ids", "rev_lam", "rev_ptr", "alive"):
+        assert torch.equal(getattr(g_k, name), getattr(g_p, name)), name
+    assert int(st_k.n_comps) == int(st_p.n_comps)
+    assert ops.launch_counts() == counts

@@ -126,5 +126,22 @@ def test_build_config_from_reference_dict():
     cfg = convert.build_config_from_dict(ref.__dict__)
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
+    # compressed precisions are carried; settings the port does not run raise
+    assert convert.build_config_from_dict(
+        dataclasses.replace(ref, precision="int8").__dict__).precision == "int8"
     with pytest.raises(ValueError):
-        convert.build_config_from_dict(dataclasses.replace(ref, precision="int8").__dict__)
+        convert.build_config_from_dict(dataclasses.replace(ref, data_bf16=True).__dict__)
+    with pytest.raises(ValueError):
+        convert.build_config_from_dict(dataclasses.replace(ref, seed_mode="coarse").__dict__)
+
+
+def test_build_config_round_trips_pq_rerank_factor():
+    """``rerank_factor`` used to be dropped silently: a pq config carried
+    across must search with the reference's re-rank width."""
+    ref = jconstruct.BuildConfig(k=12, precision="pq", rerank_factor=7, dispatch="reference")
+    cfg = convert.build_config_from_dict(ref.__dict__)
+    assert (cfg.precision, cfg.rerank_factor) == ("pq", 7)
+    jscfg, tscfg = ref.search_config(), cfg.search_config()
+    for name in ("k", "beam", "n_seeds", "hash_slots", "max_iters", "metric",
+                 "use_lgd_mask", "precision", "rerank_factor"):
+        assert getattr(tscfg, name) == getattr(jscfg, name), name

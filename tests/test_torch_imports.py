@@ -87,6 +87,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     idx = torch.zeros(4, 3, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         gather_dist.gather_distance(x[:4], x, idx)
+    x8, scale = x.to(torch.int8), torch.ones(50)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_dist.gather_distance(x[:4], x8, idx, sq_norms=scale, row_scale=scale)
+    with pytest.raises(ValueError, match="row_scale"):
+        gather_dist.gather_distance(x[:4], x8, idx, sq_norms=scale)
+    with pytest.raises(ValueError, match="sq_norms"):
+        gather_dist.gather_distance(x[:4], x8, idx, row_scale=scale)
     with pytest.raises(ValueError, match="CUDA"):
         distance.pairwise_distance(x[:4], x)
     with pytest.raises(ValueError, match="CUDA"):

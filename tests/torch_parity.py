@@ -14,6 +14,7 @@ import torch
 
 from repro.core import brute as jbrute
 from repro.core import construct as jconstruct
+from repro.kernels import precision as jprec
 from repro_torch import convert
 from repro_torch.core import brute as tbrute
 from repro_torch.core import construct as tconstruct
@@ -37,6 +38,17 @@ def gauss_data(n: int, d: int, seed: int = 0) -> np.ndarray:
 # the reference's exact_seed_graph runs op by op when called eagerly; one
 # compile of the whole function is an order of magnitude faster on the CPU
 jax_exact_seed_graph = jax.jit(jbrute.exact_seed_graph, static_argnums=(1, 2, 3))
+
+
+def encoded_numpy(enc) -> dict:
+    """Reference ``EncodedData`` -> {field: numpy array or None}."""
+    return {name: None if v is None else np.asarray(v) for name, v in enc._asdict().items()}
+
+
+def encode_both(x: np.ndarray, precision: str, **kw):
+    """The reference's ``EncodedData`` of x and the port's copy of it."""
+    enc_j = jprec.encode_dataset(jnp.asarray(x), precision, **kw)
+    return enc_j, convert.encoded_from_numpy(encoded_numpy(enc_j))
 
 
 def jax_graph_numpy(g) -> dict:
