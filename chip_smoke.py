@@ -34,7 +34,11 @@ needs one NVIDIA card and runs, in order:
    recall less 0.05 (the reference's own int8 tolerance).  Then 4,096
    held-out queries search phase 4's graph at fp32 and at pq: with
    ``rerank_factor=1000`` ids and distances equal the fp32 search bit for
-   bit, and at the default factor the top-k ids overlap by >= 0.9;
+   bit, and at the default factor the top-k ids overlap by >= 0.9.  Neither
+   prunes at this config (C = k + 2k = 60 <= 80 kept), so the pruning factor
+   1 is held to an overlap with fp32 and against itself on the CPU: the
+   card's PQ codes against the CPU's encoder, and the whole search, run
+   again on the CPU with the card's codes, graph and entry points;
 6. a ``kernels`` JSON line: each kernel's launches in the build of its own
    precision (phase 4 for fp32, phase 5 for bf16 and int8), its error
    against the plain version, times and bound.
@@ -70,6 +74,12 @@ EXACT_METRICS = ("l2", "ip", "l1")  # exact fp32 sums on integer-valued data
 VARIANTS = ("bf16", "int8")  # the compressed tables of gather and expand
 ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 QUERY_SEED, SEARCH_SEED = 17, 19  # phase 5's held-out queries and entry points
+# phase 5's pruning PQ search (rerank_factor=1): its top-k overlap with the
+# fp32 search (0.8946 in two runs on an H100 80GB HBM3 at 700 W), and its
+# agreement with the same search on the CPU, where only last-bit differences
+# of fp32 sums and ADC tables may move a near tie; and the share of the
+# card's PQ codes that the CPU's encoder gives too (ties only)
+PQ_PRUNE_OVERLAP, PQ_CPU_AGREE, PQ_CODES_AGREE = 0.88, 0.99, 0.999
 
 # the kernels, the CUDA sources that replace the TPU kernels, and the
 # pallas_call sites with the storage type each form takes
@@ -222,7 +232,7 @@ class Smoke:
         from repro_torch.configs import knn_lgd
         from repro_torch.core.graph import squared_norms
         from repro_torch.launch import build_graph
-        from repro_torch.kernels import distance, gather_dist, ref
+        from repro_torch.kernels import distance, ref
         from repro_torch.kernels.precision import encode_dataset
 
         t0 = time.perf_counter()
@@ -239,7 +249,8 @@ class Smoke:
                         enc = encode_dataset(x, precision)
                         exact = integer and exact_for(metric, precision)
                         self.compare(kernel_name("gather_distance", precision),
-                                     self.gather_kernel(q, x, idx, metric, sq, enc),
+                                     self.ops.gather_distance(q, x, idx, metric, sq_norms=sq, enc=enc,
+                                                              precision=precision),
                                      ref.gather_distance(q, x, idx, metric, sq_norms=sq, enc=enc,
                                                          precision=precision),
                                      exact=exact, what=what)
@@ -266,7 +277,7 @@ class Smoke:
             for precision in ("fp32",) + VARIANTS:
                 enc = encode_dataset(x, precision)
                 what = f"main shape {precision} {'int' if integer else 'clustered'}"
-                got = self.gather_kernel(q, x, idx, "l2", sq, enc)
+                got = self.ops.gather_distance(q, x, idx, "l2", sq_norms=sq, enc=enc, precision=precision)
                 want = ref.gather_distance(q, x, idx, "l2", sq_norms=sq, enc=enc, precision=precision)
                 self.compare(kernel_name("gather_distance", precision), got, want,
                              exact=integer, what=what)
@@ -285,20 +296,12 @@ class Smoke:
         self.xf = xf
         print("phase 2b: main-path shapes: kernels agree with plain", flush=True)
 
-    def gather_kernel(self, q, x, idx, metric, sq, enc):
-        """The gather kernel on the table ``enc`` stands for (x for fp32)."""
-        from repro_torch.kernels import gather_dist
-
-        if enc is None:
-            return gather_dist.gather_distance(q, x, idx, metric, sq_norms=sq)
-        return gather_dist.gather_distance(q, enc.data, idx, metric, sq_norms=sq,
-                                           row_scale=enc.scale)
-
     def time_gather(self, q, x, idx, sq, enc, precision):
         from repro_torch.kernels import ref
 
         name = kernel_name("gather_distance", precision)
-        ms = self.time_ms([lambda: self.gather_kernel(q, x, idx, "l2", sq, enc)] * 22)
+        ms = self.time_ms([lambda: self.ops.gather_distance(
+            q, x, idx, "l2", sq_norms=sq, enc=enc, precision=precision)] * 22)
         plain_ms = self.time_ms([lambda: ref.gather_distance(
             q, x, idx, "l2", sq_norms=sq, enc=enc, precision=precision)] * 12)
         B, C = idx.shape
@@ -366,9 +369,11 @@ class Smoke:
             self.time_expand(x, q, sq, state, P, enc, precision)
         for step in range(steps):
             cands, bi, bd, be, vi, vd = state
-            kw = dict(metric=metric, probes=P, sq_norms=sq, enc=enc, precision=precision)
-            got = expand.fused_expand(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), **kw)
-            want = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), **kw)
+            kw = dict(metric=metric, sq_norms=sq, enc=enc, precision=precision)
+            got = self.ops.expand_step(q, x, cands, bi, bd, be, vi.clone(), vd.clone(),
+                                       hash_probes=P, **kw)
+            want = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(),
+                                           probes=P, **kw)
             what = (f"{metric} B={B} C={C} e={e} H={H} step {step} "
                     f"{'int' if integer else 'float'}")
             # the hash ids and comps never depend on distance values
@@ -389,16 +394,18 @@ class Smoke:
 
         name = kernel_name("fused_expand", precision)
         cands, bi, bd, be, vi, vd = state
-        kw = dict(metric="l2", probes=P, sq_norms=sq, enc=enc, precision=precision)
+        kw = dict(metric="l2", sq_norms=sq, enc=enc, precision=precision)
         reps = 12
         # every call gets its own copy of the hash it updates in place
         hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
-        ms = self.time_ms([lambda h=h: expand.fused_expand(q, x, cands, bi, bd, be, *h, **kw)
+        ms = self.time_ms([lambda h=h: self.ops.expand_step(q, x, cands, bi, bd, be, *h,
+                                                            hash_probes=P, **kw)
                            for h in hashes])
         hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
-        plain_ms = self.time_ms([lambda h=h: expand.expand_reference(q, x, cands, bi, bd, be, *h, **kw)
+        plain_ms = self.time_ms([lambda h=h: expand.expand_reference(q, x, cands, bi, bd, be, *h,
+                                                                     probes=P, **kw)
                                  for h in hashes])
-        out = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), **kw)
+        out = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), probes=P, **kw)
         B, C = cands.shape
         e, d = bi.shape[1], x.shape[1]
         fresh = int(out[5].sum())
@@ -503,6 +510,7 @@ class Smoke:
         g, stats, t_build = self.build_full(cfg)
         peak = torch.cuda.max_memory_allocated()
         counts = self.ops.launch_counts()
+        print(f"launches on the {cfg.precision} main path: {json.dumps(counts)}", flush=True)
         for name in kernels:
             self.launches[name] = counts[name]
             check(counts[name] > 0, f"kernel {name} was not launched on the {cfg.precision} main path")
@@ -542,7 +550,6 @@ class Smoke:
               f"peak memory {peak / 2**30:.3f} GiB", flush=True)
         print(f"phase 4: graph recall@10 over {rows.numel()} strided rows = {recall:.4f} "
               f"(brute force {t_recall:.3f} s)", flush=True)
-        print(f"launches on the fp32 main path: {json.dumps(self.ops.launch_counts())}", flush=True)
         self.check_graph(g, "fp32 build")
 
         # the same build through the plain versions, same data and seeds:
@@ -577,8 +584,6 @@ class Smoke:
                   f"{construct.scanning_rate(stats, n):.6f}, peak memory {peak / 2**30:.3f} GiB, "
                   f"recall@10 over {self.rows.numel()} strided rows = {recall:.4f} (fp32 "
                   f"{self.recall32:.4f}), {same:.4f} of neighbour ids equal to the fp32 graph",
-                  flush=True)
-            print(f"launches on the {precision} main path: {json.dumps(self.ops.launch_counts())}",
                   flush=True)
             self.check_graph(g, f"{precision} build")
             check(recall >= self.recall32 - 0.05,
@@ -637,6 +642,36 @@ class Smoke:
                       "pq search with rerank_factor=1000 differs from the fp32 search")
             if factor == scfg.rerank_factor:
                 check(ov >= 0.9, f"pq search at the default factor: overlap {ov:.4f} < 0.9")
+            if factor == 1:
+                check(ov >= PQ_PRUNE_OVERLAP,
+                      f"pq search at factor 1: overlap {ov:.4f} with fp32 < {PQ_PRUNE_OVERLAP}")
+                self.pq_against_cpu(x, g, q, seeds, enc, cfg, rpq)
+
+    def pq_against_cpu(self, x, g, q, seeds, enc, cfg, rpq):
+        """The card's PQ codes and its pruning search, held against the CPU."""
+        torch = self.torch
+        from repro_torch.core import search
+        from repro_torch.kernels.precision import pq_encode
+
+        cpu = torch.device("cpu")
+        t0 = time.perf_counter()
+        x_cpu, enc_cpu = x.to(cpu), enc.to(cpu)
+        codes_agree = float((pq_encode(x_cpu, enc_cpu.codebook) == enc_cpu.codes).float().mean())
+        t_codes = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = search.search(g, x_cpu, q.to(cpu), cfg, seeds=seeds.to(cpu), enc=enc_cpu, device=cpu)
+        t_search = time.perf_counter() - t0
+        card_ids = rpq.ids.to(cpu)
+        agree = float((card_ids[:, :, None] == r.ids[:, None, :]).any(-1).float().mean())
+        rows_equal = float((card_ids == r.ids).all(1).float().mean())
+        print(f"phase 5: pq on the CPU ({torch.get_num_threads()} threads): codes of "
+              f"{x.shape[0]} rows {codes_agree:.6f} equal to the card's ({t_codes:.3f} s); "
+              f"rerank_factor=1 search {t_search:.3f} s, top-{cfg.k} overlap with the card's "
+              f"{agree:.6f}, {rows_equal:.4f} of queries with identical ids", flush=True)
+        check(codes_agree >= PQ_CODES_AGREE,
+              f"pq codes: {codes_agree:.6f} equal to the CPU's < {PQ_CODES_AGREE}")
+        check(agree >= PQ_CPU_AGREE,
+              f"pq search at factor 1: overlap {agree:.6f} with the CPU's < {PQ_CPU_AGREE}")
 
     def kernel_records(self):
         out = []

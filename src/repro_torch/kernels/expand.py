@@ -6,8 +6,10 @@ One EHC iteration per query lane: classify the candidate ids against the
 lane's visited hash (the paper's D array), compute distances to the fresh
 ones, record them, and merge them into the beam top-e.  Returns
 ``(beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, comps)``.  The
-distances may read a bf16 or int8 table (``enc``/``precision``); PQ never
-reaches this layer.
+kernel's distances read the table it is given, as ``gather_dist``'s do: the
+float32 rows, or a bf16 or int8 one (with its ``row_scale``); the plain
+version takes the compressed table as ``enc``/``precision``, as
+``ref.gather_distance`` does.  PQ never reaches this layer.
 
 Both the kernel and the plain version update the visited hash ``vis_ids`` /
 ``vis_dist`` IN PLACE and return the same tensors: the kernel touches only
@@ -145,20 +147,17 @@ def _probe_mask_record_merge(
     return beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, comps
 
 
-def _refuse_pq(precision: str) -> None:
-    if precision == "pq":
-        # only exact distances may enter the hash and the beam; the ADC
-        # prerank composes one layer up, in kernels.ops.expand_step
-        raise ValueError("expansion kernels take fp32/bf16/int8; pq is an ops-level prerank")
-
-
 def expand_reference(
     q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
     *, metric: str = "l2", probes: int = 8, sq_norms: Optional[torch.Tensor] = None,
     enc: Optional[EncodedData] = None, precision: str = "fp32",
 ):
-    """The plain version of ``fused_expand`` (same signature and returns)."""
-    _refuse_pq(precision)
+    """The plain version of ``fused_expand`` (same returns); the table is
+    ``x`` or, for bf16/int8, ``enc``."""
+    if precision == "pq":
+        # only exact distances may enter the hash and the beam; the ADC
+        # prerank composes one layer up, in kernels.ops.expand_step
+        raise ValueError("the expansion takes fp32/bf16/int8; pq is an ops-level prerank")
     present, _, _ = hash_probe_state(vis_ids, cands, probes)
     fresh_ids = torch.where((cands >= 0) & ~present, cands, -1)
     dists = ref.gather_distance(
@@ -176,21 +175,18 @@ _ARGTYPES = [_P] * 14 + [_I] * 8 + [_P]
 def fused_expand(
     q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
     *, metric: str = "l2", probes: int = 8, sq_norms: Optional[torch.Tensor] = None,
-    enc: Optional[EncodedData] = None, precision: str = "fp32",
+    row_scale: Optional[torch.Tensor] = None,
 ):
     """Launch the CUDA kernel (one CTA per lane).  CUDA tensors only; the
     hash tensors must be contiguous int32/float32 and are updated in place.
 
-    With ``precision="bf16"``/``"int8"`` and ``enc`` the matching
-    ``EncodedData``, the distances read the compressed table (int8 with its
-    scales) through that variant of the kernel, counted under its own name
-    (``fused_expand.bf16``, ``fused_expand.int8``)."""
-    _refuse_pq(precision)
+    ``x`` is the candidate table as ``gather_dist.gather_distance`` takes it:
+    float32 rows, or bfloat16, or int8 with its ``row_scale`` table and the
+    exact ``sq_norms`` cache.  Each storage type is its own instantiation of
+    the kernel, counted under its own name (``fused_expand``,
+    ``fused_expand.bf16``, ``fused_expand.int8``)."""
+    code, name, scale = _cuda.table_operands("fused_expand", x, sq_norms, row_scale)
     q, sq = kernel_operands(q, x, metric, sq_norms)
-    row_scale = None
-    if enc is not None and precision != "fp32":
-        x, row_scale = enc.data, enc.scale  # the scale is None but for int8
-    code, name, scale = _cuda.table_operands("fused_expand", x, sq, row_scale)
     x = x.contiguous()
     cands = cands.to(torch.int32).contiguous()
     beam_ids = beam_ids.to(torch.int32).contiguous()

@@ -68,9 +68,9 @@ def gather_distance(
         return ref.gather_distance(
             q, x, idx, metric, sq_norms=sq_norms, enc=enc, precision=precision
         )
+    table, row_scale = _kernel_table(x, enc)
     return _gather_dist.gather_distance(
-        q, x if enc is None else enc.data, idx, metric, sq_norms=sq_norms,
-        row_scale=None if enc is None else enc.scale,
+        q, table, idx, metric, sq_norms=sq_norms, row_scale=row_scale
     )
 
 
@@ -97,11 +97,21 @@ def expand_step(
             metric=metric, hash_probes=hash_probes, sq_norms=sq_norms, enc=enc,
             rerank_keep=rerank_keep,
         )
-    fn = _expand.fused_expand if x.is_cuda else _expand.expand_reference
-    return fn(
-        q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
-        metric=metric, probes=hash_probes, sq_norms=sq_norms, enc=enc, precision=precision,
+    if not x.is_cuda:
+        return _expand.expand_reference(
+            q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
+            metric=metric, probes=hash_probes, sq_norms=sq_norms, enc=enc, precision=precision,
+        )
+    table, row_scale = _kernel_table(x, enc)
+    return _expand.fused_expand(
+        q, table, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
+        metric=metric, probes=hash_probes, sq_norms=sq_norms, row_scale=row_scale,
     )
+
+
+def _kernel_table(x, enc):
+    """The kernels' candidate table and int8 scales: ``x``, or ``enc``'s."""
+    return (x, None) if enc is None else (enc.data, enc.scale)
 
 
 def _pq_rank_then_rerank(

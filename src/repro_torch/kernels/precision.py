@@ -77,11 +77,11 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.round(x.float() / safe).clamp(-127, 127).to(torch.int8)
 
 
-def train_pq_codebook(x: torch.Tensor, d: Optional[int] = None) -> torch.Tensor:
+def train_pq_codebook(x: torch.Tensor) -> torch.Tensor:
     """Per-subspace centroids from a few Lloyd iterations over the first
     ``_PQ_TRAIN_SAMPLE`` rows, started from strided rows; deterministic.
     Empty clusters keep their centroid.  Returns (M, K, dsub) float32."""
-    d = x.shape[1] if d is None else d
+    d = x.shape[1]
     M = pq_subspaces(d)
     dsub = d // M
     ns = min(x.shape[0], _PQ_TRAIN_SAMPLE)
@@ -120,13 +120,11 @@ def encode_dataset(
     precision: str,
     *,
     row_scale: Optional[torch.Tensor] = None,
-    codebook: Optional[torch.Tensor] = None,
 ) -> Optional[EncodedData]:
     """The engine's compressed table for ``x``; None for fp32.
 
     ``row_scale`` reuses the graph's int8 scale cache (derived from ``x``
-    when absent); ``codebook`` reuses a trained PQ codebook (trained from
-    ``x`` when absent)."""
+    when absent); pq trains its codebook on ``x``."""
     validate_precision(precision)
     if precision == "fp32":
         return None
@@ -135,8 +133,7 @@ def encode_dataset(
     if precision == "int8":
         scale = row_scales(x) if row_scale is None else row_scale.float()
         return EncodedData(data=quantize_int8(x, scale), scale=scale)
-    if codebook is None:
-        codebook = train_pq_codebook(x)
+    codebook = train_pq_codebook(x)
     return EncodedData(codes=pq_encode(x, codebook), codebook=codebook)
 
 

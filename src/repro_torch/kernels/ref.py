@@ -5,9 +5,9 @@ These are the CPU execution path and the oracle each CUDA kernel is held
 against on the card.  The gather distance uses the same norms-decomposed
 formula as the kernels (``‖q‖² + ‖x‖² − 2·q·x`` with ``‖x‖²`` from the
 graph-resident cache), so the kernel and its plain version agree bit for bit
-on integer-valued data and to float tolerance elsewhere.  Its compressed
-twin (``enc``/``precision``, ``kernels.precision``) reads bf16 or int8 rows,
-or ranks by PQ-ADC.
+on integer-valued data and to float tolerance elsewhere.  With
+``enc``/``precision`` (``kernels.precision``) the same body reads bf16 or
+int8 rows, or ranks by PQ-ADC.
 """
 
 from __future__ import annotations
@@ -51,17 +51,29 @@ def gather_distance(
 
     ``sq_norms`` is the (n,) graph-resident ``‖x‖²`` cache; the gathered rows'
     norms are derived when it is absent.  ``enc``/``precision`` select a
-    compressed candidate table; fp32 (or no ``enc``) reads ``x``.
+    compressed candidate table; fp32 (or no ``enc``) reads ``x``.  A
+    compressed table takes its ``‖x‖²`` term from the exact norms of ``x``;
+    int8 scales the dot for l2/ip/cosine and each element for l1/chi2 (1 at
+    zero scales); pq ranks by ADC.
     """
-    if enc is not None and precision != "fp32":
-        return _gather_distance_compressed(
-            q, x, idx, metric, sq_norms=sq_norms, enc=enc, precision=precision
-        )
+    precision_lib.validate_precision(precision)
+    compressed = enc is not None and precision != "fp32"
+    if compressed and sq_norms is None:
+        sq_norms = squared_norms(x)
+    qf = metrics.normalize_rows(q) if metric == "cosine" else q.float()
+    if compressed and precision == "pq":
+        lut = precision_lib.adc_tables(qf, enc.codebook, metric)
+        return precision_lib.adc_gather(lut, enc.codes, idx, metric, sq_norms)
     safe = idx.long().clamp(0, x.shape[0] - 1)
-    cand = x[safe].float()  # (b, c, d)
+    cand = (enc.data if compressed else x)[safe].float()  # (b, c, d)
+    scale = None
+    if compressed and precision == "int8":
+        s = enc.scale.float()[safe]
+        scale = torch.where(s > 0, s, 1.0)
     if metric in ("l2", "ip", "cosine"):
-        qf = metrics.normalize_rows(q) if metric == "cosine" else q.float()
         dots = (qf[:, None, :] * cand).sum(-1)
+        if scale is not None:
+            dots = dots * scale
         if metric == "ip":
             d = -dots
         else:
@@ -71,39 +83,6 @@ def gather_distance(
                 d = (qn + xn - 2.0 * dots).clamp_min(0.0)
             else:
                 d = 1.0 - dots / xn.sqrt().clamp_min(1e-12)
-    else:
-        d = metrics.row_terms(metric, q, cand)
-    return torch.where(idx >= 0, d, float("inf"))
-
-
-def _gather_distance_compressed(q, x, idx, metric, *, sq_norms, enc, precision):
-    """The bf16/int8/PQ-ADC twin of ``gather_distance``.  The ``‖x‖²`` term
-    always comes from the exact cache; int8 scales the dot for l2/ip/cosine
-    and each element for l1/chi2 (1 at zero scales)."""
-    precision_lib.validate_precision(precision)
-    sq_norms = squared_norms(x) if sq_norms is None else sq_norms
-    qf = metrics.normalize_rows(q) if metric == "cosine" else q.float()
-    if precision == "pq":
-        lut = precision_lib.adc_tables(qf, enc.codebook, metric)
-        return precision_lib.adc_gather(lut, enc.codes, idx, metric, sq_norms)
-    safe = idx.long().clamp(0, x.shape[0] - 1)
-    cand = enc.data[safe].float()  # (b, c, d): the compressed fetch
-    scale = None
-    if precision == "int8":
-        s = enc.scale.float()[safe]
-        scale = torch.where(s > 0, s, 1.0)
-    if metric in ("l2", "ip", "cosine"):
-        dots = (qf[:, None, :] * cand).sum(-1)
-        if scale is not None:
-            dots = dots * scale
-        xn = sq_norms.float()[safe]
-        if metric == "l2":
-            qn = (qf * qf).sum(-1, keepdim=True)
-            d = (qn + xn - 2.0 * dots).clamp_min(0.0)
-        elif metric == "ip":
-            d = -dots
-        else:
-            d = 1.0 - dots / xn.sqrt().clamp_min(1e-12)
     else:
         if scale is not None:
             cand = cand * scale[..., None]

@@ -170,12 +170,13 @@ def test_expand_kernel_variants_bit_exact_on_integers(card, metric, precision):
         torch.full((B, H), -1, dtype=torch.int32, device=card),
         torch.full((B, H), float("inf"), device=card),
     )
-    kw = dict(metric=metric, probes=4, sq_norms=sq, enc=enc, precision=precision)
+    kw = dict(metric=metric, probes=4, sq_norms=sq)
     for step in range(3):
-        got = expand.fused_expand(x[:B], x, cands, *state_k[:3],
-                                  *(t.clone() for t in state_k[3:]), **kw)
+        got = expand.fused_expand(x[:B], enc.data, cands, *state_k[:3],
+                                  *(t.clone() for t in state_k[3:]), row_scale=enc.scale, **kw)
         want = expand.expand_reference(x[:B], x, cands, *state_p[:3],
-                                       *(t.clone() for t in state_p[3:]), **kw)
+                                       *(t.clone() for t in state_p[3:]), enc=enc,
+                                       precision=precision, **kw)
         for name, a, b in zip(FIELDS, got, want):
             assert torch.equal(a, b), f"step {step} {name}"
         state_k, state_p = got[:5], want[:5]

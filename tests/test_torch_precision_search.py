@@ -91,9 +91,11 @@ def test_expansion_refuses_pq():
             torch.full((1, 16), -1, dtype=torch.int32), torch.zeros(1, 16))
     enc = tprec.EncodedData(codes=torch.zeros(10, 1, dtype=torch.uint8),
                             codebook=torch.zeros(1, 256, 4))
-    for fn in (texpand.expand_reference, texpand.fused_expand):
-        with pytest.raises(ValueError, match="pq"):
-            fn(*args, enc=enc, precision="pq")
+    with pytest.raises(ValueError, match="pq"):
+        texpand.expand_reference(*args, enc=enc, precision="pq")
+    # the kernel takes a table, never PQ codes
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
+        texpand.fused_expand(args[0], enc.codes, *args[2:])
     with pytest.raises(ValueError, match="rerank_keep"):
         tops.expand_step(*args, enc=enc, precision="pq")
 
