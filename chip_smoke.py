@@ -15,8 +15,8 @@ needs one NVIDIA card and runs, in order:
    atol=1e-3`` on Gaussian data and bit for bit on integer-valued data
    (for the bf16 and int8 forms: under l2 and ip, and l1 at bf16); prints
    each kernel's time, its plain version's time, its bound from the bytes
-   of its storage type and, for ``pairwise_distance``, ``torch.cdist`` as
-   a yardstick;
+   of its storage type and, for ``pairwise_distance``, ``torch.mm(q, x.T)``
+   in IEEE fp32 (the library time) and ``torch.cdist`` as yardsticks;
 3. an n=20,000, d=32 integer-valued build with the kernels and the same
    build with the plain versions, from the same injected seeds, at fp32,
    int8 and bf16: every graph array and the counters must be identical;
@@ -61,18 +61,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the fp32
-# CUDA-core rate (the fp32 kernels use no tensor cores).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-
 RTOL, ATOL = 1e-5, 1e-3
 # ~0.1 s at the H100's clock: longer than the host takes to queue one timing
 SPIN_CYCLES = 200_000_000
 METRICS = ("l2", "ip", "cosine", "l1", "chi2")
 EXACT_METRICS = ("l2", "ip", "l1")  # exact fp32 sums on integer-valued data
 VARIANTS = ("bf16", "int8")  # the compressed tables of gather and expand
-ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 QUERY_SEED, SEARCH_SEED = 17, 19  # phase 5's held-out queries and entry points
 # phase 5's pruning PQ search (rerank_factor=1): its top-k overlap with the
 # fp32 search (0.8946 in two runs on an H100 80GB HBM3 at 700 W), and its
@@ -123,12 +117,6 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def main() -> int:
     import torch
 
@@ -171,8 +159,9 @@ class Smoke:
         self.rec = {name: {"max_abs_err": 0.0} for name in KERNELS}
         self.launches = {}  # kernel -> launches in the build of its precision
         from repro_torch.kernels import _cuda, ops
+        from repro_torch.launch import profile_build
 
-        self._cuda, self.ops = _cuda, ops
+        self._cuda, self.ops, self.profile = _cuda, ops, profile_build
 
     # ------------------------------------------------------------------ utils
     def gen(self, seed):
@@ -307,8 +296,9 @@ class Smoke:
         B, C = idx.shape
         d = x.shape[1]
         valid = int((idx >= 0).sum())
-        row_bytes = ELEM_BYTES[precision] * d + (4 if precision == "int8" else 0)
-        b, how = bound(4 * (B * d + B * C + valid + B * C) + valid * row_bytes, 2 * d * valid)
+        row_bytes = self.profile.ELEM_BYTES[precision] * d + (4 if precision == "int8" else 0)
+        b, how = self.profile.bound_ms(4 * (B * d + B * C + valid + B * C) + valid * row_bytes,
+                                       2 * d * valid)
         self.rec[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how,
                               library_ms=None, shape=f"B={B} C={C} d={d}")
         print(f"{name} B={B} C={C} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
@@ -322,13 +312,18 @@ class Smoke:
         n = x.shape[0]
         ms = self.time_ms([lambda: distance.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
         plain_ms = self.time_ms([lambda: ref.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
-        lib_ms = self.time_ms([lambda: torch.cdist(q, x)] * 12)
-        b, how = bound(4 * (m * d + n * d + n + m * n), 2 * m * n * d)
+        # the product alone in IEEE fp32 (TF32 is off), and the library's
+        # own distance, which takes square roots and reduces its own norms
+        mm_ms = self.time_ms([lambda: torch.mm(q, x.T)] * 12)
+        cdist_ms = self.time_ms([lambda: torch.cdist(q, x)] * 12)
+        b, how = self.profile.bound_ms(4 * (m * d + n * d + n + m * n), 2 * m * n * d)
         print(f"pairwise_distance m={m} n={n} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"torch.cdist {lib_ms:.6f} ms, bound {b:.6f} ms ({how})", flush=True)
+              f"torch.mm {mm_ms:.6f} ms, torch.cdist {cdist_ms:.6f} ms, bound {b:.6f} ms ({how})",
+              flush=True)
         if main:
             self.rec["pairwise_distance"].update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how,
-                                                 library_ms=lib_ms, shape=f"m=n={m} d={d} cached l2")
+                                                 library_ms=mm_ms, cdist_ms=cdist_ms,
+                                                 shape=f"m=n={m} d={d} cached l2")
 
     def expand_state(self, x, q, sq, metric, B, C, e, H, P, warm, enc, precision):
         """A mid-search state: ``warm`` plain expansion steps from random
@@ -411,10 +406,8 @@ class Smoke:
         fresh = int(out[5].sum())
         valid = int((cands >= 0).sum())
         inserted = int((out[3] >= 0).sum() - (vi >= 0).sum())
-        row_bytes = ELEM_BYTES[precision] * d + (4 if precision == "int8" else 0)
-        nbytes = (4 * (B * d + B * C + fresh) + fresh * row_bytes + 4 * valid * P + 8 * inserted
-                  + 2 * B * e * 9 + 4 * B)
-        b, how = bound(nbytes, 2 * d * fresh)
+        nbytes = self.profile.expand_bytes(B, C, e, d, P, precision, fresh, valid, inserted)
+        b, how = self.profile.bound_ms(nbytes, 2 * d * fresh)
         self.rec[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how,
                               library_ms=None,
                               shape=f"B={B} C={C} e={e} H={vi.shape[1]} P={P} d={d}")
@@ -681,7 +674,8 @@ class Smoke:
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": self.launches[name], "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "cdist_ms": r.get("cdist_ms"), "shape": r["shape"],
             })
         return out
 

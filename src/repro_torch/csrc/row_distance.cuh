@@ -1,15 +1,33 @@
 // Candidate-row distance shared by the gather-distance and fused-expansion
 // kernels: the CUDA counterpart of repro/kernels/gather_dist.py
 // block_distance (:69), which blocked_gather_phase (:157) shares between
-// _gather_dist_kernel and _fused_expand_kernel.  Keeping one routine keeps
+// _gather_dist_kernel and _fused_expand_kernel.  Keeping one arithmetic keeps
 // the two kernels' distances identical per comparison, as in the reference.
 //
-// One warp computes one candidate row.  Each lane reads 16-byte slices of
-// the row (4 fp32, 8 bf16 or 16 int8 values; one load per lane for fp32 at
-// d = 128) and the warp reduces with xor shuffles, which leave the same sum
-// in every lane.  The row may be stored fp32, bf16 or int8 (the reference's
-// reduced-precision tiles, gather_dist.py:295-310); it is widened to fp32
-// and accumulated in fp32.  The formula is block_distance's:
+// The element-to-lane split.  Each lane reads 16-byte slices of the row (4
+// fp32, 8 bf16 or 16 int8 values) where d and alignment allow, else single
+// elements; slice (or element) j goes to lane j mod 32, and a lane adds its
+// slices' terms in order, one __fadd_rn at a time.  The lanes' partial sums
+// are then reduced by an xor-shuffle tree.  The row may be stored fp32,
+// bf16 or int8 (the reference's reduced-precision tiles,
+// gather_dist.py:295-310); it is widened to fp32 and accumulated in fp32.
+//
+// Two routines use that split:
+//   * warp_row_distance: one row per warp, a 32-lane tree (gather_distance);
+//   * group_row_distances: G lanes per row, G = the lanes the split gives a
+//     row rounded up to a power of two (row_group_lanes: 32 for fp32 at
+//     d = 128, 16 for bf16, 8 for int8), so a warp holds 32 / G rows at once,
+//     each lane U of them, with their 16-byte loads issued before any term
+//     is summed (fused_expand).
+// Both give the same bits.  Slice j still goes to lane j of its group, and
+// the lanes past the split hold exact +0 (a running sum that starts at +0
+// never becomes -0), so the 32-lane tree's first steps (offsets 16 .. G)
+// add +0 to every lane the G-lane tree keeps, and its last steps are that
+// tree's.  The two routines must change together or not at all.  In the
+// expansion at chip_smoke.py's synthetic state these row reads are what
+// bounds the kernel (expand.cu).
+//
+// The formula is block_distance's:
 //   l2   max(‖q‖² + ‖x‖² − 2 q·x, 0), ‖x‖² from the graph's sq_norms cache
 //   ip   −q·x
 //   cos  1 − q·x / max(√‖x‖², 1e-12), q normalized by the wrapper
@@ -33,6 +51,13 @@ enum Metric : int { kL2 = 0, kIP = 1, kCos = 2, kDot = 3, kL1 = 4, kChi2 = 5 };
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The same tree over aligned groups of G lanes (G a power of two <= 32):
+// offsets G/2 .. 1, every lane of the warp taking part.
+__device__ __forceinline__ float group_sum(float v, int G) {
+  for (int o = G >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -78,6 +103,23 @@ __device__ __forceinline__ float gathered_scale(const float* __restrict__ row_sc
   return s > 0.f ? s : 1.f;
 }
 
+// A row's distance from its reduced sum s: the int8 scale on the dot sum
+// (l2/ip/cos), then the metric's formula.
+template <typename T>
+__device__ __forceinline__ float finish_distance(int metric, float s, float qn, float xn,
+                                                 float xscale) {
+  if (std::is_same<T, int8_t>::value && metric != kL1 && metric != kChi2) {
+    s = __fmul_rn(s, xscale);
+  }
+  switch (metric) {
+    // _rn intrinsics: two roundings, as the plain version, never an FMA
+    case kL2: return fmaxf(__fsub_rn(__fadd_rn(qn, xn), __fmul_rn(2.f, s)), 0.f);
+    case kIP: return -s;
+    case kCos: return 1.f - s / fmaxf(sqrtf(xn), 1e-12f);
+    default: return s;  // dot, l1, chi2
+  }
+}
+
 // Distance from the query q (shared memory, d floats, 16-byte aligned) to
 // row `id` of x (n, d) stored as T.  `vec` (d a multiple of kVecElems<T> and
 // x 16-byte aligned, decided by the host launcher) selects 16-byte loads.
@@ -117,15 +159,91 @@ __device__ __forceinline__ float warp_row_distance(
       acc = __fadd_rn(acc, metric_term(metric, q[j], v));
     }
   }
-  float s = warp_sum(acc);
-  if (kScaled && !scale_elems) s = __fmul_rn(s, xscale);
-  switch (metric) {
-    // _rn intrinsics: two roundings, as the plain version, never an FMA
-    case kL2: return fmaxf(__fsub_rn(__fadd_rn(qn, xn), __fmul_rn(2.f, s)), 0.f);
-    case kIP: return -s;
-    case kCos: return 1.f - s / fmaxf(sqrtf(xn), 1e-12f);
-    default: return s;  // dot, l1, chi2
+  return finish_distance<T>(metric, warp_sum(acc), qn, xn, xscale);
+}
+
+// The per-element term a metric sums: q·x for l2, ip, cos and dot, or the
+// l1 or chi2 term.
+enum Term : int { kTermDot = 0, kTermL1 = 1, kTermChi2 = 2 };
+
+__host__ __device__ constexpr int metric_term_kind(int metric) {
+  return metric == kL1 ? kTermL1 : metric == kChi2 ? kTermChi2 : kTermDot;
+}
+
+// Distances of U rows per group of G lanes (see the header): row ids[u]
+// against query q[u] (shared memory, 16-byte aligned) with ‖q‖² qn[u].
+// Lane `gl` of its group takes slices gl, gl + G, ... of each of its rows
+// (id < 0: no load, +inf) and issues the U loads of a slice before summing
+// any of them; every lane of the group gets the U distances.  xn, xscale and
+// vec as for warp_row_distance; TERM is metric_term_kind(metric).  Called by
+// all 32 lanes of the warp with the same G.
+template <typename T, int U, int TERM>
+__device__ __forceinline__ void group_row_distances(
+    int metric, const float* const (&q)[U], const float (&qn)[U], const T* __restrict__ x,
+    const int (&ids)[U], int d, const float (&xn)[U], const float (&xscale)[U], bool vec,
+    int G, int gl, float (&out)[U]) {
+  // the per-element term as a constant, so the unrolled loops carry no test
+  constexpr int kTermMetric = TERM == kTermL1 ? kL1 : TERM == kTermChi2 ? kChi2 : kL2;
+  constexpr bool scale_elems = std::is_same<T, int8_t>::value && TERM != kTermDot;
+  float acc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc[u] = 0.f;
+  if (vec) {
+    constexpr int E = kVecElems<T>;
+    for (int j = gl; j < d / E; j += G) {
+      uint4 raw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        raw[u] = ids[u] >= 0
+                     ? __ldg(reinterpret_cast<const uint4*>(x + (int64_t)ids[u] * d) + j)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const T* xv = reinterpret_cast<const T*>(&raw[u]);
+        const float4* q4 = reinterpret_cast<const float4*>(q[u] + j * E);
+#pragma unroll
+        for (int e4 = 0; e4 < E / 4; ++e4) {
+          const float4 qq = q4[e4];
+          const float qv[4] = {qq.x, qq.y, qq.z, qq.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = to_float(xv[e4 * 4 + e]);
+            if (scale_elems) v = __fmul_rn(v, xscale[u]);
+            acc[u] = __fadd_rn(acc[u], metric_term(kTermMetric, qv[e], v));
+          }
+        }
+      }
+    }
+  } else {
+    for (int j = gl; j < d; j += G) {
+      T raw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) raw[u] = ids[u] >= 0 ? x[(int64_t)ids[u] * d + j] : T{};
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float v = to_float(raw[u]);
+        if (scale_elems) v = __fmul_rn(v, xscale[u]);
+        acc[u] = __fadd_rn(acc[u], metric_term(kTermMetric, q[u][j], v));
+      }
+    }
   }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const float s = group_sum(acc[u], G);
+    out[u] = ids[u] < 0 ? INFINITY : finish_distance<T>(metric, s, qn[u], xn[u], xscale[u]);
+  }
+}
+
+// Lanes per row for group_row_distances: the lanes warp_row_distance's split
+// gives a row (d / kVecElems<T> slices, or d elements), rounded up to a power
+// of two, at most 32.
+template <typename T>
+inline int row_group_lanes(int d, bool vec) {
+  const int used = vec ? d / kVecElems<T> : d;
+  int g = 1;
+  while (g < used && g < 32) g <<= 1;
+  return g;
 }
 
 // Whether a table of T at `x` with row length d takes 16-byte loads.

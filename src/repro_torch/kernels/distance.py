@@ -3,10 +3,11 @@ plain version (counterpart of ``repro.kernels.distance``).
 
 ``pairwise_distance(q, x)`` gives the (m, n) float32 distances between two
 row sets: the exact seed graph, the intra-wave W x W tile and the
-brute-force ground truth all go through it.  The CUDA kernel is a 64x64-tile
-shared-memory SIMT GEMM in full fp32 with a norm epilogue (``x_sq_norms``,
-the graph-resident ``‖x‖²`` cache, replaces the x-side norm reduction for
-l2); l1/chi2 run in the same tiling.  Cosine normalizes both sides here and
+brute-force ground truth all go through it.  The CUDA kernel is a
+register-blocked SIMT GEMM (128x128 tiles, 8x8 per thread, persistent CTAs)
+in full IEEE fp32 with a norm epilogue (``x_sq_norms``, the graph-resident
+``‖x‖²`` cache, replaces the x-side norm reduction for l2); l1/chi2 run in
+the same tiling.  Cosine normalizes both sides here and
 takes ``1 − dot`` in the kernel.  Its plain version is
 ``kernels.ref.pairwise_distance``.
 """

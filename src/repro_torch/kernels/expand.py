@@ -177,8 +177,9 @@ def fused_expand(
     *, metric: str = "l2", probes: int = 8, sq_norms: Optional[torch.Tensor] = None,
     row_scale: Optional[torch.Tensor] = None,
 ):
-    """Launch the CUDA kernel (one CTA per lane).  CUDA tensors only; the
-    hash tensors must be contiguous int32/float32 and are updated in place.
+    """Launch the CUDA kernel (one warp per lane, eight lanes per CTA).
+    CUDA tensors only; the hash tensors must be contiguous int32/float32 and
+    are updated in place.
 
     ``x`` is the candidate table as ``gather_dist.gather_distance`` takes it:
     float32 rows, or bfloat16, or int8 with its ``row_scale`` table and the

@@ -11,6 +11,10 @@
    ``torch.profiler``: the device's busy share of the profiled wall time,
    the device time per launch of each of the port's kernels, and the
    ``TOP`` kernels by device time.
+3. That build once more, counted: the mean fresh, valid and recorded
+   candidates per ``fused_expand`` launch, and the least time a launch with
+   those means could take on an H100 (``expand_bytes``, the count
+   ``chip_smoke.py`` uses at its synthetic state).
 
 Needs a CUDA device.
 """
@@ -28,14 +32,76 @@ from repro_torch import device as device_lib
 from repro_torch.configs import knn_lgd
 from repro_torch.core import construct, merge
 from repro_torch.core import search as search_lib
+from repro_torch.kernels import ops
 from repro_torch.kernels.precision import PRECISIONS
 from repro_torch.launch import build_graph
 
 PROFILE_ROWS = 200_000
 TOP = 20
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the fp32
+# CUDA-core rate (the fp32 kernels use no tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 # the port's kernels by their CUDA function names (csrc/*.cu); the name
 # covers every storage type a kernel is instantiated for
 PORT_KERNELS = ("gather_distance_kernel", "fused_expand_kernel", "pairwise_kernel")
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time on an H100: the larger of bytes over the HBM rate and flops
+    over the fp32 rate, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def expand_bytes(B, C, e, d, P, precision, fresh, valid, inserted) -> float:
+    """Bytes one ``fused_expand`` launch must move: queries, candidate ids,
+    the fresh rows at the table's width (int8 with its scale) and their
+    norms, ``P`` probed hash ids per valid candidate, the recorded
+    (id, dist) pairs, the beam in and out (id, dist, flag) and comps."""
+    row_bytes = ELEM_BYTES[precision] * d + (4 if precision == "int8" else 0)
+    return (4 * (B * d + B * C + fresh) + fresh * row_bytes + 4 * valid * P + 8 * inserted
+            + 2 * B * e * 9 + 4 * B)
+
+
+def count_expansions(x: torch.Tensor, cfg: construct.BuildConfig) -> dict:
+    """Build over x counting, per ``fused_expand`` launch, the fresh (comps),
+    valid (id >= 0) and recorded candidates; returns their means and the
+    bound at those means."""
+    sums = {"launches": 0, "shape_bytes": 0.0}
+    dev = {k: torch.zeros((), dtype=torch.int64, device=x.device)
+           for k in ("fresh", "valid", "inserted")}
+    saved = (search_lib.step, ops.expand_step)
+
+    def step(g, x_, q, st, cfg_, enc=None):
+        new = saved[0](g, x_, q, st, cfg_, enc)
+        dev["fresh"] += (new.n_comps - st.n_comps).sum()
+        dev["inserted"] += (new.fill - st.fill).sum()
+        return new
+
+    def expand_step(q, x_, cands, *args, **kw):
+        B, C = cands.shape
+        e, d = args[0].shape[1], q.shape[1]
+        dev["valid"] += (cands >= 0).sum()
+        sums["launches"] += 1
+        sums["shape_bytes"] += expand_bytes(B, C, e, d, 0, cfg.precision, 0, 0, 0)
+        return saved[1](q, x_, cands, *args, **kw)
+
+    search_lib.step, ops.expand_step = step, expand_step
+    try:
+        _build(x, cfg)
+    finally:
+        search_lib.step, ops.expand_step = saved
+    n = sums["launches"]
+    mean = {k: int(v) / n for k, v in dev.items()}
+    d = x.shape[1]
+    nbytes = sums["shape_bytes"] / n + expand_bytes(
+        0, 0, 0, d, cfg.search_config().hash_probes, cfg.precision, mean["fresh"], mean["valid"],
+        mean["inserted"])
+    b, how = bound_ms(nbytes, 2 * d * mean["fresh"])
+    return {"launches": n, **mean, "bytes": nbytes, "bound_ms": b, "bound_by": how}
 
 
 def _timed(totals, name, fn):
@@ -111,6 +177,13 @@ def main(argv=None):
               f"{us / 1e3 / max(calls, 1):.6f} ms per launch")
     for e in kernels[:TOP]:
         print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:8d} calls  {e.key[:100]}")
+
+    if cfg.precision != "pq":  # pq's comps count ADC ranks, not kernel rows
+        c = count_expansions(x[:PROFILE_ROWS], cfg)
+        print(f"fused_expand over the same build: {c['launches']} launches; per launch "
+              f"{c['fresh']:.1f} fresh, {c['valid']:.1f} valid and {c['inserted']:.1f} recorded "
+              f"candidates, {c['bytes'] / 1e6:.3f} MB; bound {c['bound_ms']:.6f} ms "
+              f"({c['bound_by']}) on an H100")
 
 
 def _device_us(e) -> float:

@@ -94,6 +94,84 @@ def test_expand_kernel_bit_exact_on_integers(card, metric, H):
         cands = torch.from_numpy(rng.randint(-1, n, (B, C))).int().to(card)
 
 
+# (H, C, e, P, d): probe exhaustion (H=16) and the auto-sized maximum hash
+# (H=65536); one, two and three 64-candidate passes; e from 1 to more than
+# C/2; one, one and two probe batches; d=100 (scalar rows for bf16 and int8),
+# 128 (the main shape) and 256 (two 16-byte slices per fp32 lane); and H=2
+# with d=70, where the probes, the query and every row take scalar loads
+EXPAND_SHAPES = [
+    (16, 60, 40, 8, 128), (65536, 60, 40, 8, 128), (16, 130, 64, 16, 100),
+    (65536, 96, 1, 1, 256), (2048, 130, 1, 8, 256), (16, 96, 64, 1, 100),
+    (65536, 130, 40, 16, 128), (2, 60, 40, 8, 70),
+]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("H,C,e,P,d", EXPAND_SHAPES)
+def test_expand_kernel_shapes_bit_exact(card, precision, H, C, e, P, d):
+    """Chained steps on integer data at the shapes the kernel's thread
+    mapping must get right: every field equals the plain version bit for
+    bit.  B=37 leaves the last CTA part-filled; the first beam is out of
+    order (the merge's general path; later beams come out ordered, with
+    dedupe holes), and candidates repeat earlier beams' ids (visited), hold
+    -1s and a duplicate."""
+    B, n = 37, 400
+    rng = np.random.RandomState(H + C + e + P + d)
+    x = _data((n, d), 9, "l2", True, card)
+    q = _data((B, d), 10, "l2", True, card)
+    sq = (x * x).sum(-1)
+    enc = precision_lib.encode_dataset(x, precision)
+    table, scale = (x, None) if precision == "fp32" else (enc.data, enc.scale)
+    beam_ids = rng.randint(-1, n, (B, e))
+    beam_dist = np.where(beam_ids >= 0, rng.randint(0, 4000, (B, e)), np.inf)
+    state_k = state_p = (
+        torch.from_numpy(beam_ids).int().to(card),
+        torch.from_numpy(beam_dist.astype(np.float32)).to(card),
+        torch.from_numpy(rng.rand(B, e) < 0.5).to(card),
+        torch.full((B, H), -1, dtype=torch.int32, device=card),
+        torch.full((B, H), float("inf"), device=card),
+    )
+    for step in range(4):
+        c = rng.randint(-1, n, (B, C))
+        seen = state_p[0].cpu().numpy()
+        k = min(C // 3, e)
+        c[:, :k] = np.where(rng.rand(B, k) < 0.7, seen[:, :k], c[:, :k])
+        c[:, -1] = c[:, 0]
+        cands = torch.from_numpy(c).int().to(card)
+        got = expand.fused_expand(q, table, cands, *state_k[:3], *(t.clone() for t in state_k[3:]),
+                                  metric="l2", probes=P, sq_norms=sq, row_scale=scale)
+        want = expand.expand_reference(q, x, cands, *state_p[:3],
+                                       *(t.clone() for t in state_p[3:]), metric="l2", probes=P,
+                                       sq_norms=sq, enc=enc, precision=precision)
+        for name, a, b in zip(FIELDS, got, want):
+            assert torch.equal(a, b), f"step {step} {name}"
+        state_k, state_p = got[:5], want[:5]
+
+
+# (m, n, d): ragged everywhere; the main shape; n one column past a multiple
+# of the 128-wide tile with d % 8 != 0; d % 4 != 0 (scalar loads and stores)
+PAIRWISE_SHAPES = [(1000, 777, 100), (4096, 4096, 128), (129, 385, 36), (130, 257, 70)]
+
+
+@pytest.mark.parametrize("metric", METRICS + ["l2-cached"])
+@pytest.mark.parametrize("m,n,d", PAIRWISE_SHAPES)
+@pytest.mark.parametrize("integer", [True, False])
+def test_pairwise_kernel_shapes(card, metric, m, n, d, integer):
+    """Bit for bit on integer data (l2/ip/l1), within rtol=1e-5, atol=1e-3
+    elsewhere, at ragged and full tiles."""
+    cached = metric == "l2-cached"
+    metric = metric.removesuffix("-cached")
+    q = _data((m, d), 11, metric, integer, card)
+    x = _data((n, d), 12, metric, integer, card)
+    xn = (x * x).sum(-1) if cached else None
+    got = distance.pairwise_distance(q, x, metric, x_sq_norms=xn)
+    want = ref.pairwise_distance(q, x, metric, x_sq_norms=xn)
+    if integer and metric in EXACT:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
 def test_build_kernels_match_plain_and_count_launches(card, monkeypatch):
     """A small integer build: identical graphs through the kernels and through
     the plain versions; every kernel launched."""

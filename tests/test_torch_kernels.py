@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_parity as tp
 from repro.core import segments as jseg
 from repro.kernels import distance as jdistance
 from repro.kernels import expand as jexpand
@@ -134,6 +135,40 @@ def test_expand_plain_matches_pallas(metric, H):
         for name, a, b in zip(EXPAND_FIELDS, got, want):
             float_field = name in ("beam_dist", "vis_dist")
             _check(a, b, exact or not float_field, f"step {step} {name}")
+        jstate, tstate = tuple(want[:5]), tuple(got[:5])
+        cands = np.where(rng.rand(*cands.shape) < 0.5, cands, rng.randint(0, n, cands.shape))
+        cands = cands.astype(np.int32)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("C,e,P,H", [(70, 40, 16, 32), (130, 66, 1, 64)])
+def test_expand_plain_matches_pallas_wide(precision, C, e, P, H):
+    """The plain version at the shapes the card tests hold the CUDA kernel
+    to: C > 64 (two candidate passes), e > C/2, P = 16 (two probe batches)
+    and P = 1, d = 100 (scalar rows for bf16 and int8), at every storage
+    type; chained steps on integer data, every field bit for bit against the
+    fused Pallas kernel (interpret mode)."""
+    B, n, d = 3, 90, 100
+    x = _data((n, d), 12, "l2", integer=True)
+    q = x[:B] + 1.0
+    sq = (x * x).sum(-1)
+    enc_j, enc_t = tp.encode_both(x, precision) if precision != "fp32" else (None, None)
+    cands, bi, bd, be = _expand_inputs(B, C, e, H, n, seed=13)
+    jstate = tuple(map(jnp.asarray, (bi, bd, be, np.full((B, H), -1, np.int32),
+                                     np.full((B, H), np.inf, np.float32))))
+    tstate = tuple(torch.from_numpy(np.array(a)) for a in jstate)
+    rng = np.random.RandomState(14)
+    for step in range(2):
+        want = jexpand.fused_expand(
+            jnp.asarray(q), jnp.asarray(x), jnp.asarray(cands), *jstate, metric="l2", probes=P,
+            sq_norms=jnp.asarray(sq), enc=enc_j, precision=precision, interpret=True,
+        )
+        got = texpand.expand_reference(
+            torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(cands), *tstate,
+            metric="l2", probes=P, sq_norms=torch.from_numpy(sq), enc=enc_t, precision=precision,
+        )
+        for name, a, b in zip(EXPAND_FIELDS, got, want):
+            _check(a, b, True, f"step {step} {name}")
         jstate, tstate = tuple(want[:5]), tuple(got[:5])
         cands = np.where(rng.rand(*cands.shape) < 0.5, cands, rng.randint(0, n, cands.shape))
         cands = cands.astype(np.int32)
