@@ -16,7 +16,12 @@ needs one NVIDIA card and runs, in order:
    (for the bf16 and int8 forms: under l2 and ip, and l1 at bf16); prints
    each kernel's time, its plain version's time, its bound from the bytes
    of its storage type and, for ``pairwise_distance``, ``torch.mm(q, x.T)``
-   in IEEE fp32 (the library time) and ``torch.cdist`` as yardsticks;
+   in IEEE fp32 (the library time) and ``torch.cdist`` as yardsticks.  The
+   gather is also held against its plain version, and timed, at a second
+   shape, a large candidate count (B=256, C=512, d=256 over 2^18 rows,
+   ``bench_gather.large_c_inputs``: exact on integer rows, to the tolerance
+   on N(0,1) rows), and at both shapes the same timer reads an empty kernel
+   launched with the gather's grid, the floor of any gather's time;
 3. an n=20,000, d=32 integer-valued build with the kernels and the same
    build with the plain versions, from the same injected seeds, at fp32,
    int8 and bf16: every graph array and the counters must be identical;
@@ -62,8 +67,6 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 RTOL, ATOL = 1e-5, 1e-3
-# ~0.1 s at the H100's clock: longer than the host takes to queue one timing
-SPIN_CYCLES = 200_000_000
 METRICS = ("l2", "ip", "cosine", "l1", "chi2")
 EXACT_METRICS = ("l2", "ip", "l1")  # exact fp32 sums on integer-valued data
 VARIANTS = ("bf16", "int8")  # the compressed tables of gather and expand
@@ -159,32 +162,13 @@ class Smoke:
         self.rec = {name: {"max_abs_err": 0.0} for name in KERNELS}
         self.launches = {}  # kernel -> launches in the build of its precision
         from repro_torch.kernels import _cuda, ops
-        from repro_torch.launch import profile_build
+        from repro_torch.launch import bench_gather, profile_build
 
-        self._cuda, self.ops, self.profile = _cuda, ops, profile_build
+        self._cuda, self.ops, self.profile, self.bench = _cuda, ops, profile_build, bench_gather
 
     # ------------------------------------------------------------------ utils
     def gen(self, seed):
         return self.torch.Generator(device=self.dev).manual_seed(seed)
-
-    def time_ms(self, fns, warmup=2):
-        """Mean device time of one call, over calls fns[0], fns[1], ...
-        (CUDA events around the whole run, after warm-up calls).  A spin
-        kernel holds the stream while the host queues the calls, so the
-        events time the device's work back to back and not the host's rate
-        of launching it (unless a call waits on the device itself)."""
-        torch = self.torch
-        for f in fns[:warmup]:
-            f()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for f in fns[warmup:]:
-            f()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / (len(fns) - warmup)
 
     def compare(self, kernel, got, want, *, exact, what):
         torch = self.torch
@@ -261,8 +245,7 @@ class Smoke:
         xi = self.data(200_000, d, 8, integer=True)
         for x, integer in ((xf, False), (xi, True)):
             sq = squared_norms(x)
-            q = x[torch.randint(0, x.shape[0], (4096,), generator=self.gen(9), device=self.dev)]
-            idx = torch.randint(0, x.shape[0], (4096, 8), generator=self.gen(10), device=self.dev).int()
+            q, idx = self.bench.main_inputs(x)
             for precision in ("fp32",) + VARIANTS:
                 enc = encode_dataset(x, precision)
                 what = f"main shape {precision} {'int' if integer else 'clustered'}"
@@ -271,7 +254,7 @@ class Smoke:
                 self.compare(kernel_name("gather_distance", precision), got, want,
                              exact=integer, what=what)
                 if not integer:
-                    self.time_gather(q, x, idx, sq, enc, precision)
+                    self.time_gather(q, x, idx, precision)
                 self.check_expand(x, q, sq, "l2", integer, B=4096, C=60, e=40, H=2048, P=8,
                                   steps=1, timed=not integer, enc=enc, precision=precision)
             xq = x[:4096]
@@ -285,24 +268,37 @@ class Smoke:
         self.xf = xf
         print("phase 2b: main-path shapes: kernels agree with plain", flush=True)
 
-    def time_gather(self, q, x, idx, sq, enc, precision):
-        from repro_torch.kernels import ref
+        # the gather at a large candidate count (refine's, the serving
+        # searches'), where a query's candidates are split over warps
+        for integer in (False, True):
+            x, q, idx = self.bench.large_c_inputs(self.dev, integer=integer)
+            sq = squared_norms(x)
+            for precision in ("fp32",) + VARIANTS:
+                enc = encode_dataset(x, precision)
+                what = f"large C {precision} {'int' if integer else 'gauss'}"
+                got = self.ops.gather_distance(q, x, idx, "l2", sq_norms=sq, enc=enc, precision=precision)
+                want = ref.gather_distance(q, x, idx, "l2", sq_norms=sq, enc=enc, precision=precision)
+                self.compare(kernel_name("gather_distance", precision), got, want,
+                             exact=integer, what=what)
+                if not integer:
+                    self.time_gather(q, x, idx, precision, prefix="large_c_")
+            del x, enc
+        print("phase 2b: gather at a large candidate count: kernels agree with plain", flush=True)
 
-        name = kernel_name("gather_distance", precision)
-        ms = self.time_ms([lambda: self.ops.gather_distance(
-            q, x, idx, "l2", sq_norms=sq, enc=enc, precision=precision)] * 22)
-        plain_ms = self.time_ms([lambda: ref.gather_distance(
-            q, x, idx, "l2", sq_norms=sq, enc=enc, precision=precision)] * 12)
-        B, C = idx.shape
-        d = x.shape[1]
-        valid = int((idx >= 0).sum())
-        row_bytes = self.profile.ELEM_BYTES[precision] * d + (4 if precision == "int8" else 0)
-        b, how = self.profile.bound_ms(4 * (B * d + B * C + valid + B * C) + valid * row_bytes,
-                                       2 * d * valid)
-        self.rec[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how,
-                              library_ms=None, shape=f"B={B} C={C} d={d}")
-        print(f"{name} B={B} C={C} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"bound {b:.6f} ms ({how})", flush=True)
+    def time_gather(self, q, x, idx, precision, prefix=""):
+        """Time the gather at one shape (``bench_gather.measure``: kernel,
+        empty launch at its grid, ``index_select``, plain version, bound)
+        into the record's ``prefix`` keys."""
+        m = self.bench.measure(q, x, idx, precision)
+        B, C, d = m["B"], m["C"], m["d"]
+        keys = ("ms", "plain_ms", "floor_ms", "index_select_ms", "bound_ms", "bound_by")
+        rec = {prefix + k: m[k] for k in keys}
+        rec[prefix + "shape"] = f"B={B} C={C} d={d}"
+        self.rec[kernel_name("gather_distance", precision)].update(rec, library_ms=None)
+        print(f"{kernel_name('gather_distance', precision)} B={B} C={C} d={d}: kernel "
+              f"{m['ms']:.6f} ms, plain {m['plain_ms']:.6f} ms, empty launch {m['floor_ms']:.6f} "
+              f"ms, index_select {m['index_select_ms']:.6f} ms, bound {m['bound_ms']:.6f} ms "
+              f"({m['bound_by']})", flush=True)
 
     def time_pairwise(self, q, x, xn, *, main):
         torch = self.torch
@@ -310,12 +306,12 @@ class Smoke:
 
         m, d = q.shape
         n = x.shape[0]
-        ms = self.time_ms([lambda: distance.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
-        plain_ms = self.time_ms([lambda: ref.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
+        ms = self.bench.time_ms([lambda: distance.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
+        plain_ms = self.bench.time_ms([lambda: ref.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
         # the product alone in IEEE fp32 (TF32 is off), and the library's
         # own distance, which takes square roots and reduces its own norms
-        mm_ms = self.time_ms([lambda: torch.mm(q, x.T)] * 12)
-        cdist_ms = self.time_ms([lambda: torch.cdist(q, x)] * 12)
+        mm_ms = self.bench.time_ms([lambda: torch.mm(q, x.T)] * 12)
+        cdist_ms = self.bench.time_ms([lambda: torch.cdist(q, x)] * 12)
         b, how = self.profile.bound_ms(4 * (m * d + n * d + n + m * n), 2 * m * n * d)
         print(f"pairwise_distance m={m} n={n} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"torch.mm {mm_ms:.6f} ms, torch.cdist {cdist_ms:.6f} ms, bound {b:.6f} ms ({how})",
@@ -393,13 +389,12 @@ class Smoke:
         reps = 12
         # every call gets its own copy of the hash it updates in place
         hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
-        ms = self.time_ms([lambda h=h: self.ops.expand_step(q, x, cands, bi, bd, be, *h,
-                                                            hash_probes=P, **kw)
-                           for h in hashes])
-        hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
-        plain_ms = self.time_ms([lambda h=h: expand.expand_reference(q, x, cands, bi, bd, be, *h,
-                                                                     probes=P, **kw)
+        ms = self.bench.time_ms([lambda h=h: self.ops.expand_step(q, x, cands, bi, bd, be, *h,
+                                                                  hash_probes=P, **kw)
                                  for h in hashes])
+        hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
+        plain_ms = self.bench.time_ms([lambda h=h: expand.expand_reference(
+            q, x, cands, bi, bd, be, *h, probes=P, **kw) for h in hashes])
         out = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), probes=P, **kw)
         B, C = cands.shape
         e, d = bi.shape[1], x.shape[1]
@@ -670,13 +665,18 @@ class Smoke:
         out = []
         for name, (source, replaces) in KERNELS.items():
             r = self.rec[name]
-            out.append({
+            rec = {
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": self.launches[name], "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "cdist_ms": r.get("cdist_ms"), "shape": r["shape"],
-            })
+            }
+            # the gathers: the empty launch and index_select at the main
+            # shape, and the large-C shape
+            rec.update({k: v for k, v in r.items()
+                        if k in ("floor_ms", "index_select_ms") or k.startswith("large_c_")})
+            out.append(rec)
         return out
 
 

@@ -9,9 +9,9 @@
 //   1. classify each candidate against the visited hash (Knuth hash,
 //      `probes`-deep linear probing, expand.py:76-120), all against the
 //      table as it stood before this step;
-//   2. distances to the fresh candidates (group_row_distances, the same
-//      arithmetic as gather_distance's warp_row_distance) and comps = number
-//      of fresh candidates;
+//   2. distances to the fresh candidates (group_row_distances, the row
+//      arithmetic gather_distance uses too) and comps = number of fresh
+//      candidates;
 //   3. record the fresh candidates whose probe found an empty slot; when
 //      several take the same slot the later one in candidate order wins, as
 //      XLA's scatter resolves the reference's `.at[].set`;
@@ -55,7 +55,7 @@
 // outputs.  The kernel is instantiated per storage type and per metric
 // term (q·x, l1, chi2), so the unrolled row loops carry no metric test.
 //
-// Bits: the rows' sums keep warp_row_distance's element-to-lane split and
+// Bits: the rows' sums keep group_row_distances' element-to-lane split and
 // xor tree (row_distance.cuh), with every product and sum rounded by
 // __fmul_rn/__fadd_rn, and the merge keeps IEEE total order with ties to
 // the lower position, so no thread mapping changes an output bit.

@@ -11,60 +11,197 @@
 // device memory for 2d flops (l2 at d = 128: 512 B fp32, 256 B bf16 or
 // 128 B + a 4-byte scale int8, per 256 flops; at most 2 flop/B, far below
 // the card's ~20 flop/B fp32 balance), so the least time is the gathered
-// rows plus ids, norms, scales and outputs over 3.35 TB/s.
+// rows plus ids, norms, scales and outputs over 3.35 TB/s.  At the seed
+// gather's shape (B = 4096, C = 8, d = 128) that is 2-6 us, close to what
+// a launch and two dependent device-memory round trips take, so the design
+// aims at as few round trips as possible; at large C (refine, the serving
+// searches) it aims at enough bytes in flight to stream at the HBM rate.
 //
-// Design: one CTA per query, one warp per candidate row (the shared
-// warp_row_distance), so a row is one coalesced read (512 bytes for fp32
-// at d = 128) and the card keeps B·C independent row reads in flight.  The
-// query is staged once in shared memory and its ‖q‖² is reduced once per
-// CTA.  The TPU kernel's double-buffered DMA ring is not needed: the warps of
-// resident CTAs overlap their loads.
+// Design: one warp per query (or per span of a query's candidates), eight
+// warps per CTA, no CTA barrier.  Each warp stages its own query in shared
+// memory (__syncwarp only) and reduces ‖q‖² itself (warp_sq_norm).  The
+// candidates go through group_row_distances (row_distance.cuh) in chunks of
+// K = (32 / G) · U rows: G lanes per row (32 fp32, 16 bf16, 8 int8 at
+// d = 128), U rows per group (8, 4, 2), so K = 8 at d = 128 and a seed
+// gather's whole query is in flight at once.  A chunk's ids are loaded
+// together, one load per row group (the first chunk's with the query), and
+// each row's norm and int8 scale beside the row, so a chunk costs two round
+// trips: its ids, then its rows.  (Loading the next chunk's ids before this
+// chunk's rows made fp32 spill at the register cap and slowed fp32 at both
+// timed shapes.)  The group's lane u writes row u's distance, K consecutive
+// floats per chunk.  4 CTAs (32 warps) per SM hold all 4,096 warps of a
+// seed gather on the 132 SMs at once (it caps the kernel at 64 registers a
+// thread).  Where B alone gives fewer warps than the card holds, a query's
+// candidates are split into spans of whole chunks, one warp each, so that
+// every resident warp has rows in flight (B = 256, C = 512: 16 spans of 32
+// rows a query).  The kernel is instantiated per storage type and per
+// metric term (q·x, l1, chi2), so the unrolled row loops carry no metric
+// test.  As measured (PERF.md), at the seed gather's shape it takes about
+// an empty launch at its grid (~2 us) plus its bytes plus the two round
+// trips; at B = 256, C = 512, d = 256 it reaches 50-80% of the byte bound.
+//
+// Bits: every row keeps row_distance.cuh's element-to-lane split and xor
+// tree, ‖q‖² keeps warp_sq_norm's order, and finish_distance and
+// gathered_scale are shared, so no thread mapping changes an output bit.
+
+#include <algorithm>
 
 #include "row_distance.cuh"
 
 namespace repro_torch {
 
-constexpr int kGatherThreads = 128;
+constexpr int kGatherWarps = 8;  // warps per CTA, one query span each
+constexpr int kGatherBlocksPerSM = 4;
 
+// U: rows a group of lanes has in flight, 16 bytes each per lane.
 template <typename T>
-__global__ void gather_distance_kernel(
-    const float* __restrict__ q, const T* __restrict__ x,
-    const float* __restrict__ sq_norms, const float* __restrict__ row_scale,
-    const int* __restrict__ idx, float* __restrict__ out, int C, int d, int metric,
-    bool vec) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // d floats
-  __shared__ float qn_s;
-  const int b = blockIdx.x;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) qs[j] = q[(int64_t)b * d + j];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp == 0) {
-    const float qn = warp_sq_norm(qs, d);
-    if (lane == 0) qn_s = qn;
-  }
-  __syncthreads();
-  const float qn = qn_s;
-  const int nwarps = blockDim.x >> 5;
-  const bool needs_norm = metric == kL2 || metric == kCos;
-  for (int c = warp; c < C; c += nwarps) {
-    const int id = idx[(int64_t)b * C + c];
-    const float xn = (needs_norm && id >= 0) ? sq_norms[id] : 0.f;
-    const float xs = gathered_scale(row_scale, id);
-    const float v = warp_row_distance<T>(metric, qs, qn, x, id, d, xn, xs, vec);
-    if (lane == 0) out[(int64_t)b * C + c] = v;
+constexpr int kGatherRows = 2 * (int)sizeof(T);  // 8 fp32, 4 bf16, 2 int8
+
+// Per-warp shared memory in floats: the query, rounded up to 16 bytes.
+__host__ __device__ inline int gather_warp_words(int d) { return (d + 3) / 4 * 4; }
+
+// Ids of chunk rows c0 + u·R + g (u < U) for the lanes of group g; -1 past
+// `end`.  All G lanes of a group read the same id, the R groups R
+// consecutive ids per load.
+template <int U>
+__device__ __forceinline__ void chunk_ids(const int* __restrict__ idx_row, int c0, int end,
+                                          int R, int g, int (&ids)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = c0 + u * R + g;
+    ids[u] = c < end ? __ldg(idx_row + c) : -1;
   }
 }
 
-template <typename T>
-void launch(const void* q, const void* x, const void* sq_norms, const void* row_scale,
-            const void* idx, void* out, int B, int C, int d, int metric,
-            cudaStream_t stream) {
-  const size_t smem = (size_t)((d + 3) / 4) * sizeof(float4);
-  gather_distance_kernel<T><<<B, kGatherThreads, smem, stream>>>(
-      (const float*)q, (const T*)x, (const float*)sq_norms, (const float*)row_scale,
-      (const int*)idx, (float*)out, C, d, metric, vec_loads<T>(x, d));
+template <typename T, int TERM>
+__global__ void __launch_bounds__(kGatherWarps * 32, kGatherBlocksPerSM) gather_distance_kernel(
+    const float* __restrict__ q, const T* __restrict__ x,
+    const float* __restrict__ sq_norms, const float* __restrict__ row_scale,
+    const int* __restrict__ idx, float* __restrict__ out, int B, int C, int d, int metric,
+    bool vec, bool qvec, int G, int span, int splits) {
+  constexpr int U = kGatherRows<T>;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kGatherWarps + warp;
+  const int b = w / splits;
+  if (b >= B) return;  // whole warps only; no barrier follows
+  const int begin = (w - b * splits) * span;
+  const int end = min(C, begin + span);
+  const int R = 32 / G;
+  const int K = R * U;
+  const int g = lane / G;
+  const int gl = lane % G;
+  const int* idx_row = idx + (int64_t)b * C;
+  float* out_row = out + (int64_t)b * C;
+
+  // ---- the first chunk's ids and the query, loaded together -------------
+  int ids[U];
+  chunk_ids<U>(idx_row, begin, end, R, g, ids);
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4) + warp * gather_warp_words(d);
+  if (qvec) {
+    const float4* q4 = reinterpret_cast<const float4*>(q + (int64_t)b * d);
+    for (int j = lane; j < d / 4; j += 32) reinterpret_cast<float4*>(qs)[j] = __ldg(q4 + j);
+  } else {
+    for (int j = lane; j < d; j += 32) qs[j] = q[(int64_t)b * d + j];
+  }
+  __syncwarp();
+  const float qn = warp_sq_norm(qs, d);
+  const float* qrow[U];
+  float qnr[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    qrow[u] = qs;
+    qnr[u] = qn;
+  }
+  const bool needs_norm = metric == kL2 || metric == kCos;
+
+  // ---- chunks of K rows: ids, then norms, scales and rows ----------------
+  for (int c0 = begin; c0 < end; c0 += K) {
+    if (c0 > begin) chunk_ids<U>(idx_row, c0, end, R, g, ids);
+    float xn[U], xs[U], dist[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      xn[u] = needs_norm && ids[u] >= 0 ? sq_norms[ids[u]] : 0.f;
+      xs[u] = gathered_scale(row_scale, ids[u]);
+    }
+    group_row_distances<T, U, TERM>(metric, qrow, qnr, x, ids, d, xn, xs, vec, G, gl, dist);
+    // lane gl of group g writes rows gl, gl + G, ... of its U
+    for (int u0 = 0; u0 < U; u0 += G) {
+      const int u = u0 + gl;
+      float v = dist[0];
+#pragma unroll
+      for (int t = 1; t < U; ++t) v = u == t ? dist[t] : v;
+      const int c = c0 + u * R + g;
+      if (u < U && c < end) out_row[c] = v;
+    }
+  }
+}
+
+// The timing floor: an empty kernel at the gather's grid, block and shared
+// memory.
+__global__ void gather_floor_kernel() {}
+
+template <typename T, int TERM>
+int launch(const void* q, const void* x, const void* sq_norms, const void* row_scale,
+           const void* idx, void* out, int B, int C, int d, int metric, bool empty,
+           cudaStream_t stream) {
+  auto kernel = gather_distance_kernel<T, TERM>;
+  const bool vec = vec_loads<T>(x, d);
+  const bool qvec = vec_loads<float>(q, d);
+  const int G = row_group_lanes<T>(d, vec);
+  const int K = 32 / G * kGatherRows<T>;
+  const int threads = kGatherWarps * 32;
+  const size_t smem = sizeof(float) * kGatherWarps * (size_t)gather_warp_words(d);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // warps the card holds at once; split each query's chunks over as many
+  // warps as it takes to give every one of them rows
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int resident = sms * std::max(per_sm, 1) * kGatherWarps;
+  const int chunks = (C + K - 1) / K;
+  int splits = B >= resident ? 1 : std::min(chunks, (resident + B - 1) / B);
+  const int span = (chunks + splits - 1) / splits * K;
+  splits = (C + span - 1) / span;
+  const int64_t warps = (int64_t)B * splits;
+  const int grid = (int)((warps + kGatherWarps - 1) / kGatherWarps);
+  if (empty) {
+    gather_floor_kernel<<<grid, threads, smem, stream>>>();
+  } else {
+    kernel<<<grid, threads, smem, stream>>>(
+        (const float*)q, (const T*)x, (const float*)sq_norms, (const float*)row_scale,
+        (const int*)idx, (float*)out, B, C, d, metric, vec, qvec, G, span, splits);
+  }
+  return (int)cudaSuccess;
+}
+
+int launch_any(const void* q, const void* x, const void* sq_norms, const void* row_scale,
+               const void* idx, void* out, int B, int C, int d, int metric, int dtype,
+               bool empty, cudaStream_t st) {
+  int err = (int)cudaErrorInvalidValue;
+#define REPRO_GATHER_ARGS q, x, sq_norms, row_scale, idx, out, B, C, d, metric, empty, st
+#define REPRO_GATHER_TERMS(T)                                               \
+  switch (metric_term_kind(metric)) {                                        \
+    case kTermDot: err = launch<T, kTermDot>(REPRO_GATHER_ARGS); break;      \
+    case kTermL1: err = launch<T, kTermL1>(REPRO_GATHER_ARGS); break;        \
+    case kTermChi2: err = launch<T, kTermChi2>(REPRO_GATHER_ARGS); break;    \
+  }
+  switch (dtype) {
+    case kF32: REPRO_GATHER_TERMS(float) break;
+    case kBF16: REPRO_GATHER_TERMS(__nv_bfloat16) break;
+    case kI8: REPRO_GATHER_TERMS(int8_t) break;
+  }
+#undef REPRO_GATHER_TERMS
+#undef REPRO_GATHER_ARGS
+  return err;
 }
 
 }  // namespace repro_torch
@@ -76,13 +213,23 @@ extern "C" int launch_gather_distance(
     const void* idx, void* out, int B, int C, int d, int metric, int dtype, void* stream) {
   using namespace repro_torch;
   if (B > 0 && C > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (dtype) {
-      case kF32: launch<float>(q, x, sq_norms, nullptr, idx, out, B, C, d, metric, st); break;
-      case kBF16: launch<__nv_bfloat16>(q, x, sq_norms, nullptr, idx, out, B, C, d, metric, st); break;
-      case kI8: launch<int8_t>(q, x, sq_norms, row_scale, idx, out, B, C, d, metric, st); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+    const int err = launch_any(q, x, sq_norms, dtype == kI8 ? row_scale : nullptr, idx, out,
+                               B, C, d, metric, dtype, false, (cudaStream_t)stream);
+    if (err != 0) return err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel launched with the grid, block and shared memory that
+// launch_gather_distance would use for these arguments.
+extern "C" int launch_gather_floor(
+    const void* q, const void* x, const void* sq_norms, const void* row_scale,
+    const void* idx, void* out, int B, int C, int d, int metric, int dtype, void* stream) {
+  using namespace repro_torch;
+  if (B > 0 && C > 0) {
+    const int err = launch_any(q, x, sq_norms, row_scale, idx, out, B, C, d, metric, dtype,
+                               true, (cudaStream_t)stream);
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }

@@ -4,28 +4,28 @@
 // _gather_dist_kernel and _fused_expand_kernel.  Keeping one arithmetic keeps
 // the two kernels' distances identical per comparison, as in the reference.
 //
-// The element-to-lane split.  Each lane reads 16-byte slices of the row (4
-// fp32, 8 bf16 or 16 int8 values) where d and alignment allow, else single
-// elements; slice (or element) j goes to lane j mod 32, and a lane adds its
-// slices' terms in order, one __fadd_rn at a time.  The lanes' partial sums
-// are then reduced by an xor-shuffle tree.  The row may be stored fp32,
-// bf16 or int8 (the reference's reduced-precision tiles,
+// The element-to-lane split (group_row_distances).  A row is read by a
+// group of G lanes, G = the lanes the split needs rounded up to a power of
+// two (row_group_lanes: 32 for fp32 at d = 128, 16 for bf16, 8 for int8), so
+// a warp holds 32 / G rows at once and each lane U of them, with their
+// 16-byte loads issued before any term is summed.  Lane j of a group reads
+// 16-byte slices j, j + G, ... of the row (4 fp32, 8 bf16 or 16 int8
+// values) where d and alignment allow, else single elements, and adds
+// their terms in order, one __fadd_rn at a time; the group's partial sums
+// are then reduced by an xor-shuffle tree over offsets G/2 .. 1.  The row
+// may be stored fp32, bf16 or int8 (the reference's reduced-precision tiles,
 // gather_dist.py:295-310); it is widened to fp32 and accumulated in fp32.
 //
-// Two routines use that split:
-//   * warp_row_distance: one row per warp, a 32-lane tree (gather_distance);
-//   * group_row_distances: G lanes per row, G = the lanes the split gives a
-//     row rounded up to a power of two (row_group_lanes: 32 for fp32 at
-//     d = 128, 16 for bf16, 8 for int8), so a warp holds 32 / G rows at once,
-//     each lane U of them, with their 16-byte loads issued before any term
-//     is summed (fused_expand).
-// Both give the same bits.  Slice j still goes to lane j of its group, and
-// the lanes past the split hold exact +0 (a running sum that starts at +0
-// never becomes -0), so the 32-lane tree's first steps (offsets 16 .. G)
-// add +0 to every lane the G-lane tree keeps, and its last steps are that
-// tree's.  The two routines must change together or not at all.  In the
-// expansion at chip_smoke.py's synthetic state these row reads are what
-// bounds the kernel (expand.cu).
+// The bits do not depend on G.  With G = 32 a row is one warp and the tree
+// has 32 lanes; with G < 32 slice j still goes to lane j of its group, and
+// the lanes a 32-lane split would add hold exact +0
+// (a running sum that starts at +0 never becomes -0), so the 32-lane tree's
+// first steps (offsets 16 .. G) add +0 to every lane the G-lane tree keeps,
+// and its last steps are that tree's.  Both kernels read their rows this
+// way, so gather_distance and fused_expand give identical distances per
+// comparison, and no change of G, U or warps per row moves an output bit.
+// In the expansion at chip_smoke.py's synthetic state and in the gather at
+// large C, these row reads are what bounds the kernel.
 //
 // The formula is block_distance's:
 //   l2   max(‖q‖² + ‖x‖² − 2 q·x, 0), ‖x‖² from the graph's sq_norms cache
@@ -62,7 +62,7 @@ __device__ __forceinline__ float group_sum(float v, int G) {
 }
 
 // One element's term.  The dot product's multiply and the running sum
-// (warp_row_distance) are rounded one by one (__fmul_rn, __fadd_rn), never
+// (group_row_distances) are rounded one by one (__fmul_rn, __fadd_rn), never
 // contracted into an FMA: whether nvcc contracts depends on how it
 // specializes the metric switch, and the kernels' results must not.
 __device__ __forceinline__ float metric_term(int metric, float qv, float xv) {
@@ -120,48 +120,6 @@ __device__ __forceinline__ float finish_distance(int metric, float s, float qn, 
   }
 }
 
-// Distance from the query q (shared memory, d floats, 16-byte aligned) to
-// row `id` of x (n, d) stored as T.  `vec` (d a multiple of kVecElems<T> and
-// x 16-byte aligned, decided by the host launcher) selects 16-byte loads.
-// For int8, `xscale` multiplies the warp's dot sum (l2/ip/cos) or each
-// dequantized element (l1/chi2), one __fmul_rn each, as block_distance does
-// (gather_dist.py:97-105); other types ignore it.  Must be called by all 32
-// lanes of a warp with the same arguments; returns the same value in every
-// lane.
-template <typename T>
-__device__ __forceinline__ float warp_row_distance(
-    int metric, const float* q, float qn, const T* __restrict__ x,
-    int id, int d, float xn, float xscale, bool vec) {
-  if (id < 0) return INFINITY;
-  constexpr bool kScaled = std::is_same<T, int8_t>::value;
-  const bool scale_elems = kScaled && (metric == kL1 || metric == kChi2);
-  const int lane = threadIdx.x & 31;
-  const T* row = x + (int64_t)id * d;
-  float acc = 0.f;
-  if (vec) {
-    constexpr int E = kVecElems<T>;
-    const uint4* row16 = reinterpret_cast<const uint4*>(row);
-    for (int j = lane; j < d / E; j += 32) {
-      const uint4 raw = __ldg(row16 + j);
-      const T* xv = reinterpret_cast<const T*>(&raw);
-      const float* qv = q + j * E;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        float v = to_float(xv[e]);
-        if (scale_elems) v = __fmul_rn(v, xscale);
-        acc = __fadd_rn(acc, metric_term(metric, qv[e], v));
-      }
-    }
-  } else {
-    for (int j = lane; j < d; j += 32) {
-      float v = to_float(row[j]);
-      if (scale_elems) v = __fmul_rn(v, xscale);
-      acc = __fadd_rn(acc, metric_term(metric, q[j], v));
-    }
-  }
-  return finish_distance<T>(metric, warp_sum(acc), qn, xn, xscale);
-}
-
 // The per-element term a metric sums: q·x for l2, ip, cos and dot, or the
 // l1 or chi2 term.
 enum Term : int { kTermDot = 0, kTermL1 = 1, kTermChi2 = 2 };
@@ -170,13 +128,18 @@ __host__ __device__ constexpr int metric_term_kind(int metric) {
   return metric == kL1 ? kTermL1 : metric == kChi2 ? kTermChi2 : kTermDot;
 }
 
-// Distances of U rows per group of G lanes (see the header): row ids[u]
-// against query q[u] (shared memory, 16-byte aligned) with ‖q‖² qn[u].
-// Lane `gl` of its group takes slices gl, gl + G, ... of each of its rows
-// (id < 0: no load, +inf) and issues the U loads of a slice before summing
-// any of them; every lane of the group gets the U distances.  xn, xscale and
-// vec as for warp_row_distance; TERM is metric_term_kind(metric).  Called by
-// all 32 lanes of the warp with the same G.
+// Distances of U rows per group of G lanes (see the header): row ids[u] of
+// x (n, d) stored as T against query q[u] (shared memory, 16-byte aligned)
+// with ‖q‖² qn[u] and the row's ‖x‖² xn[u].  Lane `gl` of its group takes
+// slices gl, gl + G, ... of each of its rows (id < 0: no load, +inf) and
+// issues the U loads of a slice before summing any of them; every lane of
+// the group gets the U distances.  `vec` (d a multiple of kVecElems<T> and x
+// 16-byte aligned, decided by the host launcher) selects 16-byte loads.  For
+// int8, xscale[u] multiplies the row's dot sum (l2/ip/cos) or each
+// dequantized element (l1/chi2), one __fmul_rn each, as block_distance does
+// (gather_dist.py:97-105); other types ignore it.  TERM is
+// metric_term_kind(metric).  Called by all 32 lanes of the warp with the
+// same G.
 template <typename T, int U, int TERM>
 __device__ __forceinline__ void group_row_distances(
     int metric, const float* const (&q)[U], const float (&qn)[U], const T* __restrict__ x,
@@ -235,9 +198,8 @@ __device__ __forceinline__ void group_row_distances(
   }
 }
 
-// Lanes per row for group_row_distances: the lanes warp_row_distance's split
-// gives a row (d / kVecElems<T> slices, or d elements), rounded up to a power
-// of two, at most 32.
+// Lanes per row for group_row_distances: the row's d / kVecElems<T> slices
+// (or d elements), rounded up to a power of two, at most 32.
 template <typename T>
 inline int row_group_lanes(int d, bool vec) {
   const int used = vec ? d / kVecElems<T> : d;

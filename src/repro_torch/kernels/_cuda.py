@@ -126,14 +126,17 @@ def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return _loaded[key]
 
 
-def launch(kernel: str, fn: ctypes._CFuncPtr, device: torch.device, *args) -> None:
+def launch(kernel: str, fn: ctypes._CFuncPtr, device: torch.device, *args,
+           count: bool = True) -> None:
     """Call a C launcher on ``device``'s current stream; raise on a CUDA
-    error."""
+    error.  ``count=False`` for a launch that is not the kernel's own (an
+    empty kernel timed at its grid)."""
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
-    LAUNCHES[kernel] += 1
+    if count:
+        LAUNCHES[kernel] += 1
 
 
 def require_cuda(kernel: str, *tensors: Optional[torch.Tensor]) -> None:

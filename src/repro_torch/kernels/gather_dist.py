@@ -3,10 +3,13 @@ version (counterpart of ``repro.kernels.gather_dist``).
 
 ``gather_distance(q, x, idx)`` gives, for each query b, the distances to the
 rows ``x[idx[b, :]]``, +inf where an id is negative; ``x`` is stored fp32,
-bf16 or int8.  The CUDA kernel runs one CTA per query and one warp per
-candidate row, through the same device routine the fused expansion uses
-(``csrc/row_distance.cuh``).  Its plain version is
+bf16 or int8.  The CUDA kernel runs one warp per query, or per span of a
+query's candidates where there are too few queries to fill the card, with
+a chunk of the query's rows in flight at once, through the row routine the
+fused expansion uses (``csrc/row_distance.cuh``).  Its plain version is
 ``kernels.ref.gather_distance``: the CPU path and the kernel's oracle.
+``gather_floor`` launches an empty kernel at the gather's grid, the floor
+of any timing of it.
 """
 
 from __future__ import annotations
@@ -58,6 +61,25 @@ def gather_distance(
     instantiation of the kernel and counts its launches under its own name
     (``gather_distance``, ``gather_distance.bf16``, ``gather_distance.int8``).
     """
+    return _launch("launch_gather_distance", q, x, idx, metric, sq_norms, row_scale)
+
+
+def gather_floor(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    idx: torch.Tensor,
+    metric: str = "l2",
+    *,
+    sq_norms: Optional[torch.Tensor] = None,
+    row_scale: Optional[torch.Tensor] = None,
+) -> None:
+    """Launch an empty kernel with the grid, block and shared memory that
+    ``gather_distance`` would launch for the same arguments: the least time
+    any gather can read under the same timer.  Not counted as a launch."""
+    _launch("launch_gather_floor", q, x, idx, metric, sq_norms, row_scale, count=False)
+
+
+def _launch(symbol, q, x, idx, metric, sq_norms, row_scale, *, count=True):
     code, name, scale = _cuda.table_operands("gather_distance", x, sq_norms, row_scale)
     q, sq = kernel_operands(q, x, metric, sq_norms)
     idx = idx.to(torch.int32).contiguous()
@@ -65,10 +87,10 @@ def gather_distance(
     B, C = idx.shape
     out = torch.empty((B, C), dtype=torch.float32, device=x.device)
     _cuda.require_cuda("gather_distance", q, x, idx, sq, scale, out)
-    fn = _cuda.function("gather_dist", "launch_gather_distance", _ARGTYPES)
+    fn = _cuda.function("gather_dist", symbol, _ARGTYPES)
     _cuda.launch(
         name, fn, x.device,
         _cuda.ptr(q), _cuda.ptr(x), _cuda.ptr(sq), _cuda.ptr(scale), _cuda.ptr(idx),
-        _cuda.ptr(out), B, C, x.shape[1], KERNEL_METRIC[metric], code,
+        _cuda.ptr(out), B, C, x.shape[1], KERNEL_METRIC[metric], code, count=count,
     )
     return out

@@ -68,7 +68,7 @@ def gather_distance(
         return ref.gather_distance(
             q, x, idx, metric, sq_norms=sq_norms, enc=enc, precision=precision
         )
-    table, row_scale = _kernel_table(x, enc)
+    table, row_scale = kernel_table(x, enc)
     return _gather_dist.gather_distance(
         q, table, idx, metric, sq_norms=sq_norms, row_scale=row_scale
     )
@@ -102,14 +102,14 @@ def expand_step(
             q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
             metric=metric, probes=hash_probes, sq_norms=sq_norms, enc=enc, precision=precision,
         )
-    table, row_scale = _kernel_table(x, enc)
+    table, row_scale = kernel_table(x, enc)
     return _expand.fused_expand(
         q, table, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
         metric=metric, probes=hash_probes, sq_norms=sq_norms, row_scale=row_scale,
     )
 
 
-def _kernel_table(x, enc):
+def kernel_table(x, enc):
     """The kernels' candidate table and int8 scales: ``x``, or ``enc``'s."""
     return (x, None) if enc is None else (enc.data, enc.scale)
 

@@ -232,6 +232,63 @@ def test_gather_kernel_variants(card, metric, precision, integer):
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
 
 
+# (B, C, d): C from one row to more than one chunk per warp; d = 36 and 70
+# (scalar rows at bf16/int8, and at every type for 70), 64, 128 and 256
+# (16-byte rows, one or two slices per lane); B not a multiple of the CTA's
+# eight warps.  (300, 700, 128) splits each query's candidates over warps in
+# spans of several chunks, the last one ragged; (4500, 20, 64) gives more
+# queries than the card holds warps, so one warp walks all its chunks.
+GATHER_SHAPES = [
+    (1, 1, 36), (5, 7, 64), (37, 8, 128), (1, 9, 70), (5, 33, 256), (37, 512, 128),
+    (5, 512, 36), (37, 33, 70), (1, 512, 256), (300, 700, 128), (4500, 20, 64),
+]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("B,C,d", GATHER_SHAPES)
+def test_gather_kernel_shapes(card, precision, B, C, d):
+    """Every metric on integer and Gaussian rows at the shapes the kernel's
+    thread mapping must get right: bit for bit where the sums are exact,
+    within rtol=1e-5, atol=1e-3 elsewhere.  The first query's ids are all
+    -1 and the second's repeat one id; the rest mix -1s into uniform ids."""
+    n = 400
+    rng = np.random.RandomState(B + C + d)
+    ids = rng.randint(-1, n, (B, C))
+    ids[0] = -1
+    if B > 1:
+        ids[1] = ids[1, 0] if ids[1, 0] >= 0 else 3
+    idx = torch.from_numpy(ids).int().to(card)
+    for metric in METRICS:
+        for integer in (True, False):
+            x = _data((n, d), 13, metric, integer, card)
+            q = _data((B, d), 14, metric, integer, card)
+            sq = (x * x).sum(-1)
+            enc = precision_lib.encode_dataset(x, precision)
+            table, scale = (x, None) if precision == "fp32" else (enc.data, enc.scale)
+            got = gather_dist.gather_distance(q, table, idx, metric, sq_norms=sq, row_scale=scale)
+            want = ref.gather_distance(q, x, idx, metric, sq_norms=sq, enc=enc,
+                                       precision=precision)
+            what = f"{metric} {'int' if integer else 'gauss'}"
+            assert torch.equal(torch.isinf(got), idx < 0), what
+            exact = metric in EXACT if precision == "fp32" else _exact(metric, precision)
+            if integer and exact:
+                assert torch.equal(got, want), what
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3, msg=what)
+
+
+@pytest.mark.parametrize("B,C,d", [(4096, 8, 128), (256, 512, 256)])
+def test_gather_floor_is_not_a_gather_launch(card, B, C, d):
+    """The empty kernel at the gather's grid launches without error and is
+    not counted as a gather launch."""
+    x = _data((500, d), 15, "l2", False, card)
+    idx = torch.from_numpy(np.random.RandomState(16).randint(0, 500, (B, C))).int().to(card)
+    before = ops.launch_counts()
+    gather_dist.gather_floor(_data((B, d), 17, "l2", False, card), x, idx)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == before
+
+
 @pytest.mark.parametrize(
     "metric,precision", [("l2", "bf16"), ("l2", "int8"), ("ip", "int8"), ("l1", "bf16")])
 def test_expand_kernel_variants_bit_exact_on_integers(card, metric, precision):

@@ -90,6 +90,38 @@ def test_gather_plain_matches_pallas(metric, integer):
     _check(got, want, integer and metric in EXACT, metric)
 
 
+def _gather_ids(B, C, n, seed):
+    """Uniform ids with -1s; the first query's all -1, the second's one id
+    repeated."""
+    idx = np.random.RandomState(seed).randint(-1, n, (B, C)).astype(np.int32)
+    idx[0] = -1
+    idx[1] = 7
+    return idx
+
+
+# the CUDA kernel's shapes: a seed gather's chunk (C=8, d=128) and a large
+# candidate count (C=512, d=256, four of the Pallas kernel's 128-wide blocks)
+@pytest.mark.parametrize("B,C,d", [(4, 8, 128), (3, 512, 256)])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("integer", [False, True])
+def test_gather_plain_matches_pallas_wide(B, C, d, metric, integer):
+    n = 600
+    q = _data((B, d), 5, metric, integer)
+    x = _data((n, d), 6, metric, integer)
+    idx = _gather_ids(B, C, n, 7)
+    sq = (x * x).sum(-1)
+    want = jgather.gather_distance(
+        jnp.asarray(q), jnp.asarray(x), jnp.asarray(idx), metric=metric,
+        sq_norms=jnp.asarray(sq), interpret=True,
+    )
+    got = tref.gather_distance(
+        torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(idx), metric,
+        sq_norms=torch.from_numpy(sq),
+    )
+    assert np.array_equal(np.isinf(np.asarray(got)), idx < 0)
+    _check(got, want, integer and metric in EXACT, metric)
+
+
 def _expand_inputs(B, C, e, H, n, seed):
     """A mid-search state: beam from random ids, a hash holding some of them,
     candidates mixing visited ids, new ids, duplicates and -1."""

@@ -178,6 +178,40 @@ def test_compressed_gather_matches_reference_and_pallas(metric, precision):
     _check(got, want, False, "gaussian")
 
 
+# the CUDA kernel's shapes: a seed gather's chunk (C=8, d=128) and a large
+# candidate count (C=512, d=256)
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("B,C,d", [(4, 8, 128), (3, 512, 256)])
+@pytest.mark.parametrize("integer", [False, True])
+def test_compressed_gather_matches_pallas_wide(precision, B, C, d, integer):
+    """The plain compressed gather against the Pallas kernel in interpret
+    mode under every metric: bit for bit on integer rows where the sums are
+    exact, within rtol=1e-5, atol=1e-4 elsewhere.  The first query's ids are
+    all -1, the second's one id repeated."""
+    rng = np.random.RandomState(B + C + d)
+    n = 600
+    if integer:
+        x = rng.randint(0, 8, (n, d)).astype(np.float32)
+        q = rng.randint(0, 8, (B, d)).astype(np.float32)
+    else:
+        x = np.abs(rng.randn(n, d)).astype(np.float32)  # chi2 needs x, q >= 0
+        q = np.abs(rng.randn(B, d)).astype(np.float32)
+    idx = rng.randint(-1, n, (B, C)).astype(np.int32)
+    idx[0] = -1
+    idx[1] = 7
+    sq = (x * x).sum(-1)
+    enc_j, enc_t = tp.encode_both(x, precision)
+    for metric in METRICS:
+        kern = jgather.gather_distance(
+            jnp.asarray(q), enc_j.data, jnp.asarray(idx), metric=metric,
+            sq_norms=jnp.asarray(sq), row_scale=enc_j.scale, interpret=True)
+        got = tref.gather_distance(
+            torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(idx), metric,
+            sq_norms=torch.from_numpy(sq), enc=enc_t, precision=precision)
+        assert np.array_equal(np.isinf(got.numpy()), idx < 0), metric
+        _check(got, kern, integer and _exact(metric, precision), metric)
+
+
 def test_pq_gather_is_adc_on_either_route():
     rng = np.random.RandomState(2)
     x = rng.randn(300, 16).astype(np.float32)
