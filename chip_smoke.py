@@ -20,8 +20,12 @@ needs one NVIDIA card and runs, in order:
    gather is also held against its plain version, and timed, at a second
    shape, a large candidate count (B=256, C=512, d=256 over 2^18 rows,
    ``bench_gather.large_c_inputs``: exact on integer rows, to the tolerance
-   on N(0,1) rows), and at both shapes the same timer reads an empty kernel
-   launched with the gather's grid, the floor of any gather's time;
+   on N(0,1) rows).  At both shapes each timed gather call reads its own
+   queries and ids (``bench_gather.timing_sets``), so its rows come from
+   device memory and not from the L2 the call before it filled; the replay
+   of one set (warm) is printed beside it, and the same timer reads an
+   empty kernel launched with the gather's grid, the floor of any gather's
+   time;
 3. an n=20,000, d=32 integer-valued build with the kernels and the same
    build with the plain versions, from the same injected seeds, at fp32,
    int8 and bf16: every graph array and the counters must be identical;
@@ -246,6 +250,7 @@ class Smoke:
         for x, integer in ((xf, False), (xi, True)):
             sq = squared_norms(x)
             q, idx = self.bench.main_inputs(x)
+            sets = None if integer else self.bench.timing_sets("main", x)
             for precision in ("fp32",) + VARIANTS:
                 enc = encode_dataset(x, precision)
                 what = f"main shape {precision} {'int' if integer else 'clustered'}"
@@ -254,9 +259,10 @@ class Smoke:
                 self.compare(kernel_name("gather_distance", precision), got, want,
                              exact=integer, what=what)
                 if not integer:
-                    self.time_gather(q, x, idx, precision)
+                    self.time_gather(x, sets, precision)
                 self.check_expand(x, q, sq, "l2", integer, B=4096, C=60, e=40, H=2048, P=8,
                                   steps=1, timed=not integer, enc=enc, precision=precision)
+            del sets
             xq = x[:4096]
             sqq = sq[:4096]
             got = distance.pairwise_distance(xq, xq, "l2", x_sq_norms=sqq)
@@ -281,22 +287,26 @@ class Smoke:
                 self.compare(kernel_name("gather_distance", precision), got, want,
                              exact=integer, what=what)
                 if not integer:
-                    self.time_gather(q, x, idx, precision, prefix="large_c_")
+                    self.time_gather(x, self.bench.timing_sets("large_c", x), precision,
+                                     prefix="large_c_")
             del x, enc
         print("phase 2b: gather at a large candidate count: kernels agree with plain", flush=True)
 
-    def time_gather(self, q, x, idx, precision, prefix=""):
-        """Time the gather at one shape (``bench_gather.measure``: kernel,
-        empty launch at its grid, ``index_select``, plain version, bound)
-        into the record's ``prefix`` keys."""
-        m = self.bench.measure(q, x, idx, precision)
+    def time_gather(self, x, sets, precision, prefix=""):
+        """Time the gather over the query and id ``sets`` of one shape
+        (``bench_gather.measure``: kernel cold and warm, empty launch at its
+        grid, ``index_select``, plain version, bound) into the record's
+        ``prefix`` keys."""
+        m = self.bench.measure(x, sets, precision)
         B, C, d = m["B"], m["C"], m["d"]
-        keys = ("ms", "plain_ms", "floor_ms", "index_select_ms", "bound_ms", "bound_by")
+        keys = ("ms", "warm_ms", "plain_ms", "floor_ms", "index_select_ms", "bound_ms",
+                "bound_by")
         rec = {prefix + k: m[k] for k in keys}
         rec[prefix + "shape"] = f"B={B} C={C} d={d}"
         self.rec[kernel_name("gather_distance", precision)].update(rec, library_ms=None)
         print(f"{kernel_name('gather_distance', precision)} B={B} C={C} d={d}: kernel "
-              f"{m['ms']:.6f} ms, plain {m['plain_ms']:.6f} ms, empty launch {m['floor_ms']:.6f} "
+              f"{m['ms']:.6f} ms (warm {m['warm_ms']:.6f} ms), plain {m['plain_ms']:.6f} ms, "
+              f"empty launch {m['floor_ms']:.6f} "
               f"ms, index_select {m['index_select_ms']:.6f} ms, bound {m['bound_ms']:.6f} ms "
               f"({m['bound_by']})", flush=True)
 
@@ -306,12 +316,12 @@ class Smoke:
 
         m, d = q.shape
         n = x.shape[0]
-        ms = self.bench.time_ms([lambda: distance.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
-        plain_ms = self.bench.time_ms([lambda: ref.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
+        ms = self.profile.time_ms([lambda: distance.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
+        plain_ms = self.profile.time_ms([lambda: ref.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
         # the product alone in IEEE fp32 (TF32 is off), and the library's
         # own distance, which takes square roots and reduces its own norms
-        mm_ms = self.bench.time_ms([lambda: torch.mm(q, x.T)] * 12)
-        cdist_ms = self.bench.time_ms([lambda: torch.cdist(q, x)] * 12)
+        mm_ms = self.profile.time_ms([lambda: torch.mm(q, x.T)] * 12)
+        cdist_ms = self.profile.time_ms([lambda: torch.cdist(q, x)] * 12)
         b, how = self.profile.bound_ms(4 * (m * d + n * d + n + m * n), 2 * m * n * d)
         print(f"pairwise_distance m={m} n={n} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"torch.mm {mm_ms:.6f} ms, torch.cdist {cdist_ms:.6f} ms, bound {b:.6f} ms ({how})",
@@ -389,11 +399,11 @@ class Smoke:
         reps = 12
         # every call gets its own copy of the hash it updates in place
         hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
-        ms = self.bench.time_ms([lambda h=h: self.ops.expand_step(q, x, cands, bi, bd, be, *h,
+        ms = self.profile.time_ms([lambda h=h: self.ops.expand_step(q, x, cands, bi, bd, be, *h,
                                                                   hash_probes=P, **kw)
                                  for h in hashes])
         hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
-        plain_ms = self.bench.time_ms([lambda h=h: expand.expand_reference(
+        plain_ms = self.profile.time_ms([lambda h=h: expand.expand_reference(
             q, x, cands, bi, bd, be, *h, probes=P, **kw) for h in hashes])
         out = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), probes=P, **kw)
         B, C = cands.shape
@@ -675,7 +685,8 @@ class Smoke:
             # the gathers: the empty launch and index_select at the main
             # shape, and the large-C shape
             rec.update({k: v for k, v in r.items()
-                        if k in ("floor_ms", "index_select_ms") or k.startswith("large_c_")})
+                        if k in ("warm_ms", "floor_ms", "index_select_ms")
+                        or k.startswith("large_c_")})
             out.append(rec)
         return out
 

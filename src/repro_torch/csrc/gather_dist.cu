@@ -18,7 +18,8 @@
 // searches) it aims at enough bytes in flight to stream at the HBM rate.
 //
 // Design: one warp per query (or per span of a query's candidates), eight
-// warps per CTA, no CTA barrier.  Each warp stages its own query in shared
+// warps per CTA (fewer where eight queries overflow a CTA's shared memory,
+// d > 7,264), no CTA barrier.  Each warp stages its own query in shared
 // memory (__syncwarp only) and reduces ‖q‖² itself (warp_sq_norm).  The
 // candidates go through group_row_distances (row_distance.cuh) in chunks of
 // K = (32 / G) · U rows: G lanes per row (32 fp32, 16 bf16, 8 int8 at
@@ -36,21 +37,27 @@
 // every resident warp has rows in flight (B = 256, C = 512: 16 spans of 32
 // rows a query).  The kernel is instantiated per storage type and per
 // metric term (q·x, l1, chi2), so the unrolled row loops carry no metric
-// test.  As measured (PERF.md), at the seed gather's shape it takes about
-// an empty launch at its grid (~2 us) plus its bytes plus the two round
-// trips; at B = 256, C = 512, d = 256 it reaches 50-80% of the byte bound.
+// test.  The layout of a launch (warps per CTA, warps the card holds) is
+// worked out once per device, storage type, metric term and d and kept.
+// As measured (PERF.md), at the seed gather's shape it takes about an empty
+// launch at its grid (~2 us) plus its bytes plus the two round trips; at
+// B = 256, C = 512, d = 256 it reaches 37-65% of the byte bound, each
+// distinct row read once from device memory.
 //
 // Bits: every row keeps row_distance.cuh's element-to-lane split and xor
 // tree, ‖q‖² keeps warp_sq_norm's order, and finish_distance and
 // gathered_scale are shared, so no thread mapping changes an output bit.
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "row_distance.cuh"
 
 namespace repro_torch {
 
-constexpr int kGatherWarps = 8;  // warps per CTA, one query span each
+constexpr int kGatherWarps = 8;  // most warps per CTA, one query span each
 constexpr int kGatherBlocksPerSM = 4;
 
 // U: rows a group of lanes has in flight, 16 bytes each per lane.
@@ -82,7 +89,7 @@ __global__ void __launch_bounds__(kGatherWarps * 32, kGatherBlocksPerSM) gather_
   constexpr int U = kGatherRows<T>;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * kGatherWarps + warp;
+  const int w = blockIdx.x * (blockDim.x >> 5) + warp;
   const int b = w / splits;
   if (b >= B) return;  // whole warps only; no barrier follows
   const int begin = (w - b * splits) * span;
@@ -142,41 +149,83 @@ __global__ void __launch_bounds__(kGatherWarps * 32, kGatherBlocksPerSM) gather_
 // memory.
 __global__ void gather_floor_kernel() {}
 
+// How a gather at width d is laid out on one device: warps per CTA, and the
+// warps the card holds at once.
+struct GatherPlan {
+  int warps;
+  int resident;
+};
+
+// The plan of gather_distance_kernel<T, TERM> at width d on the current
+// device, worked out on its first launch there and kept.  Eight warps per
+// CTA where eight queries fit the CTA's opt-in shared memory, fewer above
+// d = 7,264, none (cudaErrorInvalidValue) where one query does not fit.
+template <typename T, int TERM>
+cudaError_t gather_plan(int d, GatherPlan* plan) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, GatherPlan> plans;  // (device, d)
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto found = plans.find({device, d});
+  if (found != plans.end()) {
+    *plan = found->second;
+    return cudaSuccess;
+  }
+  auto kernel = gather_distance_kernel<T, TERM>;
+  int sms = 0, optin = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const size_t per_warp = sizeof(float) * (size_t)gather_warp_words(d);
+  const int warps = (int)std::min<size_t>(kGatherWarps, (size_t)optin / per_warp);
+  if (warps < 1) return cudaErrorInvalidValue;
+  const size_t smem = warps * per_warp;
+  // past 48 KB a launch needs the opt-in; allow all of it, so that every
+  // plan kept for this device stays launchable
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
+  if (err != cudaSuccess) return err;
+  *plan = {warps, sms * std::max(per_sm, 1) * warps};
+  plans[{device, d}] = *plan;
+  return cudaSuccess;
+}
+
 template <typename T, int TERM>
 int launch(const void* q, const void* x, const void* sq_norms, const void* row_scale,
            const void* idx, void* out, int B, int C, int d, int metric, bool empty,
            cudaStream_t stream) {
-  auto kernel = gather_distance_kernel<T, TERM>;
+  GatherPlan plan;
+  cudaError_t err = gather_plan<T, TERM>(d, &plan);
+  if (err != cudaSuccess) return (int)err;
   const bool vec = vec_loads<T>(x, d);
   const bool qvec = vec_loads<float>(q, d);
   const int G = row_group_lanes<T>(d, vec);
   const int K = 32 / G * kGatherRows<T>;
-  const int threads = kGatherWarps * 32;
-  const size_t smem = sizeof(float) * kGatherWarps * (size_t)gather_warp_words(d);
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  // warps the card holds at once; split each query's chunks over as many
-  // warps as it takes to give every one of them rows
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int resident = sms * std::max(per_sm, 1) * kGatherWarps;
+  const int threads = plan.warps * 32;
+  const size_t smem = sizeof(float) * plan.warps * (size_t)gather_warp_words(d);
+  // split each query's chunks over as many warps as it takes to give every
+  // resident warp rows
   const int chunks = (C + K - 1) / K;
-  int splits = B >= resident ? 1 : std::min(chunks, (resident + B - 1) / B);
+  int splits = B >= plan.resident ? 1 : std::min(chunks, (plan.resident + B - 1) / B);
   const int span = (chunks + splits - 1) / splits * K;
   splits = (C + span - 1) / span;
   const int64_t warps = (int64_t)B * splits;
-  const int grid = (int)((warps + kGatherWarps - 1) / kGatherWarps);
+  const int grid = (int)((warps + plan.warps - 1) / plan.warps);
   if (empty) {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(gather_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
     gather_floor_kernel<<<grid, threads, smem, stream>>>();
   } else {
-    kernel<<<grid, threads, smem, stream>>>(
+    gather_distance_kernel<T, TERM><<<grid, threads, smem, stream>>>(
         (const float*)q, (const T*)x, (const float*)sq_norms, (const float*)row_scale,
         (const int*)idx, (float*)out, B, C, d, metric, vec, qvec, G, span, splits);
   }

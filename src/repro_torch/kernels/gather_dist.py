@@ -28,6 +28,7 @@ KERNEL_METRIC = {"l2": 0, "ip": 1, "cosine": 2, "l1": 4, "chi2": 5}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
+_MAX_WIDTH: dict = {}  # device -> max_width(device)
 
 
 def kernel_operands(q, x, metric, sq_norms):
@@ -60,6 +61,10 @@ def gather_distance(
     table and the exact ``sq_norms`` cache.  Each storage type is its own
     instantiation of the kernel and counts its launches under its own name
     (``gather_distance``, ``gather_distance.bf16``, ``gather_distance.int8``).
+
+    Each warp holds its query in shared memory, so d is at most
+    ``max_width(x.device)``: the floats a CTA's shared memory may hold,
+    58,112 on an H100.  A wider d raises ``ValueError``.
     """
     return _launch("launch_gather_distance", q, x, idx, metric, sq_norms, row_scale)
 
@@ -79,8 +84,22 @@ def gather_floor(
     _launch("launch_gather_floor", q, x, idx, metric, sq_norms, row_scale, count=False)
 
 
+def max_width(device: torch.device) -> int:
+    """The widest d the CUDA kernel takes on ``device``: one query in the
+    opt-in shared memory of a CTA, in whole 16-byte words."""
+    if device not in _MAX_WIDTH:
+        props = torch.cuda.get_device_properties(device)
+        # an H100's 227 KB where this PyTorch does not report it
+        optin = getattr(props, "shared_memory_per_block_optin", 227 * 1024)
+        _MAX_WIDTH[device] = optin // 16 * 4
+    return _MAX_WIDTH[device]
+
+
 def _launch(symbol, q, x, idx, metric, sq_norms, row_scale, *, count=True):
     code, name, scale = _cuda.table_operands("gather_distance", x, sq_norms, row_scale)
+    if x.is_cuda and x.shape[1] > max_width(x.device):
+        raise ValueError(f"gather_distance: d={x.shape[1]} is wider than the "
+                         f"{max_width(x.device)} floats a CTA's shared memory holds")
     q, sq = kernel_operands(q, x, metric, sq_norms)
     idx = idx.to(torch.int32).contiguous()
     x = x.contiguous()

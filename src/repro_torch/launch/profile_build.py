@@ -43,6 +43,8 @@ TOP = 20
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
+# ~0.1 s at the H100's clock: longer than the host takes to queue one timing
+SPIN_CYCLES = 200_000_000
 # the port's kernels by their CUDA function names (csrc/*.cu); the name
 # covers every storage type a kernel is instantiated for
 PORT_KERNELS = ("gather_distance_kernel", "fused_expand_kernel", "pairwise_kernel")
@@ -54,6 +56,25 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fns, warmup=2) -> float:
+    """Mean device time of one call, over calls fns[0], fns[1], ... (CUDA
+    events around the whole run, after ``warmup`` calls).  A spin kernel
+    holds the stream while the host queues the calls, so the events time the
+    device's work back to back and not the host's rate of launching it
+    (unless a call waits on the device itself)."""
+    for f in fns[:warmup]:
+        f()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for f in fns[warmup:]:
+        f()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (len(fns) - warmup)
 
 
 def expand_bytes(B, C, e, d, P, precision, fresh, valid, inserted) -> float:

@@ -277,6 +277,34 @@ def test_gather_kernel_shapes(card, precision, B, C, d):
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3, msg=what)
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("d", [7264, 7268, 12288, "max"])
+def test_gather_kernel_wide_queries(card, precision, d):
+    """Eight queries fill a CTA's shared memory up to d = 7,264; wider, a
+    CTA holds fewer warps, down to one at ``max_width``.  Integer rows, bit
+    for bit under l2 and ip; B not a multiple of the warps per CTA."""
+    d = gather_dist.max_width(card) if d == "max" else d
+    B, C, n = 11, 9, 40
+    idx = torch.from_numpy(np.random.RandomState(d).randint(-1, n, (B, C))).int().to(card)
+    for metric in ("l2", "ip"):
+        x = _data((n, d), 18, metric, True, card)
+        q = _data((B, d), 19, metric, True, card)
+        sq = (x * x).sum(-1)
+        enc = precision_lib.encode_dataset(x, precision)
+        table, scale = (x, None) if precision == "fp32" else (enc.data, enc.scale)
+        got = gather_dist.gather_distance(q, table, idx, metric, sq_norms=sq, row_scale=scale)
+        want = ref.gather_distance(q, x, idx, metric, sq_norms=sq, enc=enc, precision=precision)
+        assert torch.equal(got, want), metric
+
+
+def test_gather_kernel_refuses_wider_queries(card):
+    d = gather_dist.max_width(card) + 4
+    x = _data((10, d), 20, "l2", True, card)
+    idx = torch.zeros((1, 3), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="wider than"):
+        gather_dist.gather_distance(x[:1], x, idx)
+
+
 @pytest.mark.parametrize("B,C,d", [(4096, 8, 128), (256, 512, 256)])
 def test_gather_floor_is_not_a_gather_launch(card, B, C, d):
     """The empty kernel at the gather's grid launches without error and is
