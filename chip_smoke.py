@@ -25,10 +25,18 @@ needs one NVIDIA card and runs, in order:
    device memory and not from the L2 the call before it filled; the replay
    of one set (warm) is printed beside it, and the same timer reads an
    empty kernel launched with the gather's grid, the floor of any gather's
-   time;
+   time.  Then the serving searches' shapes: the gather at B in {1, 37, 64}
+   with C=44 coarse seeds (T + T·M + p = 4 + 32 + 8) and ``fused_expand`` at
+   the same B with C=60, e=64, H=2048, each storage type against its plain
+   version (exact on integer rows), B=64 timed;
 3. an n=20,000, d=32 integer-valued build with the kernels and the same
    build with the plain versions, from the same injected seeds, at fp32,
-   int8 and bf16: every graph array and the counters must be identical;
+   int8 and bf16: every graph array and the counters must be identical.  On
+   the fp32 graph one churn script runs twice, with the kernels and with the
+   plain versions: remove 2,000 rows, compact, insert 1,024 rows from
+   injected seeds, and a ``seed_mode="coarse"`` build from injected
+   landmarks and seeds; every graph array, the id map, the coarse level and
+   ``n_comps`` must be identical;
 4. the online LGD build at full width (the knn-lgd config: k=20, l2, W=4096,
    beam 40, 8 seeds, d=128) over n=1,000,000 clustered rows, then graph
    recall@10 over 10,000 strided rows against ``brute_force_knn`` run
@@ -48,8 +56,26 @@ needs one NVIDIA card and runs, in order:
    1 is held to an overlap with fp32 and against itself on the CPU: the
    card's PQ codes against the CPU's encoder, and the whole search, run
    again on the CPU with the card's codes, graph and entry points;
-6. a ``kernels`` JSON line: each kernel's launches in the build of its own
-   precision (phase 4 for fp32, phase 5 for bf16 and int8), its error
+6. serving at full width: phase 4's graph as an ``OnlineIndex`` at capacity
+   10^6 behind a ``ServingLoop`` (top_k 10, beam 64, waves of up to 64,
+   a 96-query recall reservoir sampling every 5th query), one untimed
+   warm-up round, then 24 rounds of 40 held-out queries; every 4th round
+   (and the warm-up) removes 4,096 random live rows and adds 4,096 fresh
+   ones, so each churn event runs remove, compact and one insertion wave.
+   The same traffic then runs through the plain versions on the card, from
+   the same seeds.  It prints p50/p99 latency, QPS, comps per query,
+   scanning rate, the ``hash_full`` share and the fresh and served
+   recall@10, and holds the kernels' fresh recall >= plain - 0.01, the
+   capacity at 10^6, the graph's invariants and no removed row served.
+   Then a snapshot round trip of the churned index (bit-equal arrays, one
+   64-query wave bit-identical before and after), ``derive_coarse`` with
+   4,000 landmarks and the reservoir searched at ``seed_mode="coarse"``
+   (kernels >= plain - 0.01, beside random seeding), a ``JsonlTracker``
+   trace holding the loop's and the index's spans, and one wave served
+   with the tracker on bit-identical to the wave with it off;
+7. a ``kernels`` JSON line: each kernel's launches in the build of its own
+   precision (phase 4 for fp32, phase 5 for bf16 and int8) and, for the
+   three fp32 kernels, in the serving run (``serve_launches``), its error
    against the plain version, times and bound.
 
 It exits non-zero, printing no result, when any phase fails, when no CUDA
@@ -62,6 +88,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -75,6 +102,11 @@ METRICS = ("l2", "ip", "cosine", "l1", "chi2")
 EXACT_METRICS = ("l2", "ip", "l1")  # exact fp32 sums on integer-valued data
 VARIANTS = ("bf16", "int8")  # the compressed tables of gather and expand
 QUERY_SEED, SEARCH_SEED = 17, 19  # phase 5's held-out queries and entry points
+# phase 6: the served queries and the fresh rows (held-out samples of the
+# same mixture), the loop's entry points, the victims, the coarse landmarks
+SERVE_QUERY_SEED, FRESH_SEED, LOOP_SEED, VICTIM_SEED, LANDMARK_SEED = 29, 23, 31, 37, 41
+SERVE_ROUNDS, SERVE_BURST, CHURN, CHURN_EVERY = 24, 40, 4096, 4
+SERVE_LANDMARKS = 4000
 # phase 5's pruning PQ search (rerank_factor=1): its top-k overlap with the
 # fp32 search (0.8946 in two runs on an H100 80GB HBM3 at 700 W), and its
 # agreement with the same search on the CPU, where only last-bit differences
@@ -143,7 +175,7 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         for phase in (smoke.build_kernels, smoke.phase_kernels, smoke.phase_build_parity,
-                      smoke.phase_full, smoke.phase_compressed):
+                      smoke.phase_full, smoke.phase_compressed, smoke.phase_serving):
             phase()
             print(f"  [{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except PhaseError as exc:
@@ -165,6 +197,7 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.rec = {name: {"max_abs_err": 0.0} for name in KERNELS}
         self.launches = {}  # kernel -> launches in the build of its precision
+        self.serve_launches = {}  # kernel -> launches in the serving run
         from repro_torch.kernels import _cuda, ops
         from repro_torch.launch import bench_gather, profile_build
 
@@ -291,6 +324,43 @@ class Smoke:
                                      prefix="large_c_")
             del x, enc
         print("phase 2b: gather at a large candidate count: kernels agree with plain", flush=True)
+        self.serving_shapes(xi)
+
+    def serving_shapes(self, xi):
+        """The serving searches' shapes: the coarse seed gather (C=44) and
+        the expansion at beam 64 (C=60, e=64, H=2048), at B = 1, 37, 64."""
+        torch = self.torch
+        from repro_torch.core.graph import squared_norms
+        from repro_torch.core.search import auto_hash_slots
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.precision import encode_dataset
+
+        H = auto_hash_slots(64, 60)
+        for x, integer in ((self.xf, False), (xi, True)):
+            sq = squared_norms(x)
+            n = x.shape[0]
+            for B in (1, 37, 64):
+                g = self.gen(50 + B)
+                q = x[torch.randint(0, n, (B,), generator=g, device=self.dev)]
+                idx = torch.randint(-1, n, (B, 44), generator=g, device=self.dev).int()
+                timed = B == 64 and not integer
+                for precision in ("fp32",) + VARIANTS:
+                    enc = encode_dataset(x, precision)
+                    what = f"serving B={B} C=44 {precision} {'int' if integer else 'clustered'}"
+                    kw = dict(sq_norms=sq, enc=enc, precision=precision)
+                    self.compare(kernel_name("gather_distance", precision),
+                                 self.ops.gather_distance(q, x, idx, "l2", **kw),
+                                 ref.gather_distance(q, x, idx, "l2", **kw), exact=integer, what=what)
+                    if timed:
+                        sets = [(x[torch.randint(0, n, (B,), generator=g, device=self.dev)],
+                                 torch.randint(0, n, (B, 44), generator=g, device=self.dev).int())
+                                for _ in range(self.bench.COLD_SETS + 2)]
+                        self.time_gather(x, sets, precision, prefix="serve_")
+                    self.check_expand(x, q, sq, "l2", integer, B=B, C=60, e=64, H=H, P=8,
+                                      steps=2, timed=timed, enc=enc, precision=precision,
+                                      prefix="serve_")
+        print(f"phase 2c: serving shapes (B in 1, 37, 64; gather C=44; expand C=60 e=64 H={H}): "
+              "kernels agree with plain", flush=True)
 
     def time_gather(self, x, sets, precision, prefix=""):
         """Time the gather over the query and id ``sets`` of one shape
@@ -359,7 +429,7 @@ class Smoke:
         return cands(), beam_ids, beam_dist, beam_exp, vis_ids, vis_dist
 
     def check_expand(self, x, q, sq, metric, integer, *, B, C, e, H, P, steps, enc, precision,
-                     timed=False):
+                     timed=False, prefix=""):
         from repro_torch.kernels import expand
 
         name = kernel_name("fused_expand", precision)
@@ -367,7 +437,7 @@ class Smoke:
         state = self.expand_state(x, q, sq, metric, B, C, e, H, P, 2 if H < 1024 else 6,
                                   enc, precision)
         if timed:
-            self.time_expand(x, q, sq, state, P, enc, precision)
+            self.time_expand(x, q, sq, state, P, enc, precision, prefix)
         for step in range(steps):
             cands, bi, bd, be, vi, vd = state
             kw = dict(metric=metric, sq_norms=sq, enc=enc, precision=precision)
@@ -390,7 +460,7 @@ class Smoke:
                     self.compare(name, got[i], want[i], exact=True, what=f"{what} {field}")
             state = (cands.roll(1, dims=1),) + tuple(want[:5])
 
-    def time_expand(self, x, q, sq, state, P, enc, precision):
+    def time_expand(self, x, q, sq, state, P, enc, precision, prefix=""):
         from repro_torch.kernels import expand
 
         name = kernel_name("fused_expand", precision)
@@ -413,9 +483,9 @@ class Smoke:
         inserted = int((out[3] >= 0).sum() - (vi >= 0).sum())
         nbytes = self.profile.expand_bytes(B, C, e, d, P, precision, fresh, valid, inserted)
         b, how = self.profile.bound_ms(nbytes, 2 * d * fresh)
-        self.rec[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how,
-                              library_ms=None,
-                              shape=f"B={B} C={C} e={e} H={vi.shape[1]} P={P} d={d}")
+        rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how,
+                   shape=f"B={B} C={C} e={e} H={vi.shape[1]} P={P} d={d}")
+        self.rec[name].update({prefix + k: v for k, v in rec.items()}, library_ms=None)
         print(f"{name} B={B} C={C} e={e} H={vi.shape[1]} P={P} d={d} "
               f"(fresh {fresh}, inserted {inserted}): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"bound {b:.6f} ms ({how})", flush=True)
@@ -481,6 +551,77 @@ class Smoke:
             print(f"phase 3: n={n} d={d} integer build, W={cfg.wave}, precision={precision}: graph "
                   f"arrays, n_comps={int(st_k.n_comps)} and edges identical, kernels vs plain "
                   f"(kernels {t_k:.3f} s, plain {t_p:.3f} s)", flush=True)
+            if precision == "fp32":
+                g32, cfg32 = g_k, cfg
+        self.churn_parity(g32, x, cfg32)
+
+    def churn_script(self, g, x, cfg):
+        """Remove 2,000 rows, compact, insert 1,024 rows, then a coarse
+        build, every draw injected; returns each result as numpy arrays."""
+        torch = self.torch
+        from repro_torch import convert
+        from repro_torch.core import construct, dynamic, hierarchy
+
+        def cpu(seed):
+            return torch.Generator().manual_seed(seed)
+
+        def seed_fn(base, n_landmarks=None):
+            def fn(wave, pos, W, n_valid):
+                gen = cpu(base + wave)
+                seeds = torch.randint(0, max(n_valid, 1), (W, cfg.n_seeds), generator=gen,
+                                      dtype=torch.int32)
+                if n_landmarks is None:
+                    return seeds
+                return seeds, torch.randint(0, n_landmarks, (W, cfg.n_seeds), generator=gen,
+                                            dtype=torch.int32)
+            return fn
+
+        n, d = x.shape
+        out = {}
+        victims = torch.randperm(n, generator=cpu(2001))[:2000].to(self.dev)
+        g1 = dynamic.remove(g, x, victims, cfg.metric)
+        g2, x2, id_map = dynamic.compact(g1, x)
+        new = torch.randint(0, 16, (1024, d), generator=cpu(2002)).float().to(self.dev)
+        n0 = g2.n_valid
+        x3 = torch.cat([x2[:n0], new, x2[n0 + 1024:]])
+        g3, st3 = dynamic.insert(g2, x3, 1024, cfg, seed_fn=seed_fn(3000), device=self.dev)
+        ccfg = dataclasses.replace(cfg, seed_mode="coarse")
+        L = hierarchy.default_landmarks(n)
+        g4, st4, c4 = construct.build(
+            x, ccfg, seed_fn=seed_fn(5000, L), landmark_seed_fn=seed_fn(6000),
+            landmark_rows=torch.randperm(n, generator=cpu(4001))[:L], return_coarse=True,
+            device=self.dev)
+        for i, gi in enumerate((g1, g2, g3, g4), 1):
+            out.update({f"g{i}.{k}": v for k, v in convert.graph_to_numpy(gi).items()})
+        out.update({f"coarse.{k}": v for k, v in convert.coarse_to_numpy(c4).items()
+                    if k != "graph"})
+        out.update({f"coarse.graph.{k}": v for k, v in convert.coarse_to_numpy(c4)["graph"].items()})
+        out["id_map"], out["x2"] = id_map.cpu().numpy(), x2.cpu().numpy()
+        out["n_comps.insert"], out["n_comps.coarse"] = int(st3.n_comps), int(st4.n_comps)
+        return out
+
+    def churn_parity(self, g, x, cfg):
+        """The churn script with the kernels and with the plain versions."""
+        self.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        a = self.churn_script(g, x, cfg)
+        t_k = time.perf_counter() - t0
+        counts = self.ops.launch_counts()
+        for kernel in ("gather_distance", "fused_expand", "pairwise_distance"):
+            check(counts[kernel] > 0, f"churn script launched no {kernel}")
+        t0 = time.perf_counter()
+        with self.plain_versions():
+            b = self.churn_script(g, x, cfg)
+        t_p = time.perf_counter() - t0
+        check(self.ops.launch_counts() == counts, "plain churn script launched a kernel")
+        for name in a:
+            check(bool((a[name] == b[name]).all()) if hasattr(a[name], "shape")
+                  else a[name] == b[name], f"churn script: {name} differs, kernels vs plain")
+        print(f"phase 3: churn script on the n={x.shape[0]} fp32 graph (remove 2,000, compact, "
+              f"insert 1,024, coarse build with {a['coarse.landmark_rows'].shape[0]} landmarks): "
+              f"graphs, id map, coarse level and n_comps ({a['n_comps.insert']}, "
+              f"{a['n_comps.coarse']}) identical, kernels vs plain (kernels {t_k:.3f} s, "
+              f"plain {t_p:.3f} s; launches {json.dumps(counts)})", flush=True)
 
     # ---------------------------------------------------------------- phase 4
     def build_full(self, cfg):
@@ -671,6 +812,229 @@ class Smoke:
         check(agree >= PQ_CPU_AGREE,
               f"pq search at factor 1: overlap {agree:.6f} with the CPU's < {PQ_CPU_AGREE}")
 
+    # ---------------------------------------------------------------- phase 6
+    def serve_run(self, tracker=None):
+        """Phase 4's graph as an ``OnlineIndex`` behind a ``ServingLoop``
+        under the churned traffic; returns (index, loop, report, waves,
+        seconds), ``waves`` each wave's (ids, dists, alive mask) as served."""
+        torch = self.torch
+        from repro_torch.configs import knn_lgd
+        from repro_torch.index import OnlineIndex
+        from repro_torch.serve.loop import ServeLoopConfig, ServingLoop
+
+        waves = []
+
+        class RecordingLoop(ServingLoop):
+            def _search(self, q):
+                res = super()._search(q)
+                waves.append((res.ids, res.dists, self.index.graph.alive))
+                return res
+
+        index = OnlineIndex(graph=self.g32, items=self.xf, build_cfg=knn_lgd.full_config(),
+                            auto_compact=True)
+        loop = RecordingLoop(index, ServeLoopConfig(top_k=10, beam=64, max_batch=64,
+                                                    recall_reservoir=96, recall_sample_every=5),
+                             tracker=tracker, seed=LOOP_SEED)
+        victim_gen = torch.Generator(device=self.dev).manual_seed(VICTIM_SEED)
+        queries, fresh = self.serve_queries, self.serve_fresh
+
+        def round_(r, churn):
+            if churn:
+                alive = torch.nonzero(index.graph.alive)[:, 0]
+                pick = torch.randperm(alive.numel(), generator=victim_gen, device=self.dev)
+                loop.remove(alive[pick[:CHURN]])
+                e = r // CHURN_EVERY
+                loop.add(fresh[e * CHURN:(e + 1) * CHURN])
+            loop.submit(queries[r * SERVE_BURST:(r + 1) * SERVE_BURST])
+            loop.pump()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        round_(0, True)  # the warm-up round, outside the window
+        loop.reset_window()
+        for r in range(1, SERVE_ROUNDS + 1):
+            round_(r, r % CHURN_EVERY == 0)
+        rep = loop.report(audit_k=10)
+        torch.cuda.synchronize()
+        return index, loop, rep, waves, time.perf_counter() - t0
+
+    def phase_serving(self):
+        torch = self.torch
+        from repro_torch.core import graph as graph_lib
+        from repro_torch.data import synthetic
+        from repro_torch.launch import build_graph
+        from repro_torch.obs import JsonlTracker, load_events
+
+        n, d = self.xf.shape
+        events = SERVE_ROUNDS // CHURN_EVERY + 1
+        self.serve_queries = synthetic.clustered(
+            self.gen(build_graph.DATA_SEED), (SERVE_ROUNDS + 1) * SERVE_BURST, d,
+            sample_generator=self.gen(SERVE_QUERY_SEED))
+        self.serve_fresh = synthetic.clustered(
+            self.gen(build_graph.DATA_SEED), events * CHURN, d,
+            sample_generator=self.gen(FRESH_SEED))
+        trace = ROOT / "build" / "serve_trace.jsonl"
+        trace.parent.mkdir(exist_ok=True)
+        trace.unlink(missing_ok=True)
+        tracker = JsonlTracker(str(trace), run_meta={"run": "chip_smoke phase 6"})
+        self.ops.reset_launch_counts()
+        index, loop, rep, waves, t_k = self.serve_run(tracker)
+        counts = self.ops.launch_counts()
+        tracker.finish()
+        print(f"launches on the serving path: {json.dumps(counts)}", flush=True)
+        for name in ("gather_distance", "fused_expand", "pairwise_distance"):
+            self.serve_launches[name] = counts[name]
+            check(counts[name] > 0, f"kernel {name} was not launched on the serving path")
+        with self.plain_versions():
+            index_p, loop_p, rep_p, waves_p, t_p = self.serve_run()
+        check(self.ops.launch_counts() == counts, "the plain serving run launched a kernel")
+        for what, r, t in (("kernels", rep, t_k), ("plain versions", rep_p, t_p)):
+            print(f"phase 6: serving n={n} d={d} through the {what}: {r['n_served']} queries in "
+                  f"{r['n_waves']} waves, p50 {r['p50_latency_ms']:.3f} ms, p99 "
+                  f"{r['p99_latency_ms']:.3f} ms, {r['qps']:.1f} QPS, comps/query "
+                  f"{r['comps_per_query']:.1f}, scanning rate {r['scanning_rate']:.6f}, hash_full "
+                  f"share {r['hash_saturation_ratio']:.4f}, recall@10 fresh {r['recall_at_10']:.4f} "
+                  f"served {r['recall_at_10_served']:.4f} over {r['n_audited']} queries "
+                  f"({t:.3f} s with {events} churn events of {CHURN})", flush=True)
+        check(rep["recall_at_10"] >= rep_p["recall_at_10"] - 0.01,
+              f"serving recall@10 {rep['recall_at_10']:.4f} < plain {rep_p['recall_at_10']:.4f} - 0.01")
+        for idx, ws, what in ((index, waves, "kernels"), (index_p, waves_p, "plain")):
+            check(idx.capacity == n, f"serving ({what}) grew the index to {idx.capacity}")
+            inv = graph_lib.graph_invariants_ok(idx.graph)
+            bad = [k for k, v in inv.items() if not bool(v.all())]
+            check(not bad, f"serving ({what}): graph invariants violated: {bad}")
+            empty = 0
+            for ids, _, alive in ws:
+                found = ids[ids >= 0].long()
+                empty += ids.numel() - found.numel()
+                check(bool(alive[found].all()), f"serving ({what}): a wave served a removed row")
+            print(f"phase 6: {what}: {len(ws)} searches served only live rows ({empty} empty "
+                  f"result slots); capacity stays at {n}; graph invariants hold", flush=True)
+        spans = {}
+        for e in load_events(str(trace)):
+            if e.get("event") == "span":
+                spans.setdefault(e["name"], []).append(e["dur_s"])
+        want = {"serve/step", "serve/search", "index/flush", "index/remove", "index/compact"}
+        check(want <= set(spans), f"serving trace lacks spans {sorted(want - set(spans))}")
+        print(f"phase 6: trace {trace.relative_to(ROOT)}, host seconds by span (count, total, "
+              "mean ms): " + ", ".join(
+                  f"{name} ({len(d)}, {sum(d):.3f}, {1e3 * sum(d) / len(d):.3f})"
+                  for name, d in sorted(spans.items())), flush=True)
+        self.serving_checks(index, loop)
+
+    def serving_checks(self, index, loop):
+        """On the churned index: tracker on vs off, the snapshot round trip
+        and coarse seeding."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.index import OnlineIndex
+        from repro_torch.obs import InMemoryTracker
+        from repro_torch.serve.loop import ServeLoopConfig, ServingLoop
+
+        q = torch.from_numpy(np.stack(loop._res_q[:64])).to(self.dev)
+
+        def wave(idx, tracker=None):
+            lp = ServingLoop(idx.clone(), ServeLoopConfig(top_k=10, beam=64, max_batch=64),
+                             tracker=tracker, seed=LOOP_SEED)
+            out = []
+            orig = lp._search
+            lp._search = lambda b: out.append(orig(b)) or out[-1]
+            lp.submit(q)
+            lp.step()
+            return out[0]
+
+        off, on = wave(index), wave(index, InMemoryTracker())
+        check(torch.equal(off.ids, on.ids) and torch.equal(off.dists, on.dists),
+              "a wave served with the tracker on differs from the wave with it off")
+        print("phase 6: one 64-query wave with the tracker on is bit-identical to it off",
+              flush=True)
+        tmp = tempfile.mkdtemp(dir=ROOT / "build")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index.save(os.path.join(tmp, "snap"))
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = OnlineIndex.load(os.path.join(tmp, "snap"), device=self.dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(tmp, "snap", f))
+                       for f in os.listdir(os.path.join(tmp, "snap")))
+        finally:
+            shutil.rmtree(tmp)
+        for name in index.graph._fields:
+            a, b = getattr(index.graph, name), getattr(back.graph, name)
+            check(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b,
+                  f"snapshot round trip: {name} differs")
+        check(torch.equal(index.items, back.items), "snapshot round trip: items differ")
+        w0, w1 = wave(index), wave(back)
+        check(torch.equal(w0.ids, w1.ids) and torch.equal(w0.dists, w1.dists),
+              "snapshot round trip: a wave differs before and after")
+        print(f"phase 6: snapshot of the churned index, {size / 2**30:.3f} GiB: save "
+              f"{t_save:.3f} s, load {t_load:.3f} s, every array bit-equal, one 64-query wave "
+              "bit-identical before and after", flush=True)
+        self.coarse_serving(index, np.stack(loop._res_q))
+
+    def coarse_search(self, index, q, truth):
+        """derive_coarse with SERVE_LANDMARKS landmarks, then q at
+        seed_mode="coarse": (recall@10, comps/query, seconds to derive)."""
+        torch = self.torch
+        from repro_torch.core import brute, hierarchy
+
+        cidx = index.clone()
+        cidx.build_cfg = dataclasses.replace(index.build_cfg, seed_mode="coarse",
+                                             coarse_landmarks=SERVE_LANDMARKS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cidx.coarse = hierarchy.derive_coarse(cidx.graph, cidx.items, cidx.build_cfg,
+                                              generator=self.gen(LANDMARK_SEED), device=self.dev)
+        torch.cuda.synchronize()
+        t_derive = time.perf_counter() - t0
+        res = cidx.search(q, 10, beam=64, generator=self.gen(LOOP_SEED))
+        return (brute.recall_at_k(res.ids, truth, 10), float(res.n_comps.float().mean()),
+                t_derive, cidx.coarse)
+
+    def coarse_serving(self, index, q_np):
+        """The reservoir's queries at coarse and at random seeding."""
+        torch = self.torch
+        from repro_torch.core import brute
+
+        from repro_torch.configs import knn_lgd
+        from repro_torch.core import graph as graph_lib
+        from repro_torch.index import OnlineIndex
+
+        q = torch.from_numpy(q_np).to(self.dev)
+        # the same queries on phase 4's graph before any churn
+        fresh = OnlineIndex(graph=self.g32, items=self.xf, build_cfg=knn_lgd.full_config())
+        truth0, _ = brute.brute_force_knn(self.xf, q, 10, "l2", sq_norms=self.g32.sq_norms,
+                                          device=self.dev)
+        r0 = fresh.search(q, 10, beam=64, generator=self.gen(LOOP_SEED))
+        # and on that graph with its reverse lists rebuilt as compact() does
+        rebuilt = fresh.clone()
+        rebuilt.graph = graph_lib.rebuild_reverse(self.g32)
+        r1 = rebuilt.search(q, 10, beam=64, generator=self.gen(LOOP_SEED))
+        truth, _ = brute.brute_force_knn(index.items, q, 10, "l2", n_valid=index.graph.n_valid,
+                                         alive=index.graph.alive, device=self.dev)
+        rand = index.search(q, 10, beam=64, generator=self.gen(LOOP_SEED))
+        r_rand = brute.recall_at_k(rand.ids, truth, 10)
+        r_k, c_k, t_k, lvl_k = self.coarse_search(index, q, truth)
+        with self.plain_versions():
+            r_p, c_p, t_p, lvl_p = self.coarse_search(index, q, truth)
+        same = bool(torch.equal(lvl_k.landmark_rows, lvl_p.landmark_rows))
+        print(f"phase 6: derive_coarse, {SERVE_LANDMARKS} landmarks over {index.graph.n_valid} "
+              f"rows: kernels {t_k:.3f} s, plain {t_p:.3f} s (same landmarks: {same}); "
+              f"{q.shape[0]} reservoir queries: coarse seeding recall@10 {r_k:.4f}, comps/query "
+              f"{c_k:.1f} (plain {r_p:.4f}, {c_p:.1f}); random seeding recall@10 {r_rand:.4f}, "
+              f"comps/query {float(rand.n_comps.float().mean()):.1f}; before the churn, random "
+              f"seeding recall@10 {brute.recall_at_k(r0.ids, truth0, 10):.4f}, comps/query "
+              f"{float(r0.n_comps.float().mean()):.1f}, and {brute.recall_at_k(r1.ids, truth0, 10):.4f}"
+              f" with the reverse lists rebuilt canonically", flush=True)
+        check(r_k >= r_p - 0.01, f"coarse serving recall@10 {r_k:.4f} < plain {r_p:.4f} - 0.01")
+
     def kernel_records(self):
         out = []
         for name, (source, replaces) in KERNELS.items():
@@ -686,7 +1050,9 @@ class Smoke:
             # shape, and the large-C shape
             rec.update({k: v for k, v in r.items()
                         if k in ("warm_ms", "floor_ms", "index_select_ms")
-                        or k.startswith("large_c_")})
+                        or k.startswith(("large_c_", "serve_"))})
+            if name in self.serve_launches:
+                rec["serve_launches"] = self.serve_launches[name]
             out.append(rec)
         return out
 

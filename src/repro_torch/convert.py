@@ -2,9 +2,11 @@
 
 ``graph_from_numpy`` takes the reference ``KNNGraph`` fields as numpy arrays
 (``{name: np.asarray(field)}``) and gives the port's graph;
-``graph_to_numpy`` goes the other way; ``build_config_from_dict`` carries a
-reference ``BuildConfig.__dict__``; ``encoded_from_numpy`` carries a
-reference ``EncodedData``.  Nothing here imports the reference.
+``graph_to_numpy`` goes the other way; ``coarse_from_numpy`` and
+``coarse_to_numpy`` do the same for a ``CoarseLevel``;
+``build_config_from_dict`` carries a reference ``BuildConfig.__dict__``;
+``encoded_from_numpy`` carries a reference ``EncodedData``.  Nothing here
+imports the reference.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.core.construct import BuildConfig
 from repro_torch.core.graph import KNNGraph
+from repro_torch.core.hierarchy import CoarseLevel
 from repro_torch.kernels.precision import EncodedData
 
 _DTYPES = {
@@ -34,7 +37,7 @@ _DTYPES = {
 def graph_from_numpy(fields: dict, device="cpu") -> KNNGraph:
     """Reference graph fields (numpy) -> the port's ``KNNGraph``."""
     kw = {
-        name: torch.as_tensor(np.asarray(fields[name])).to(device=device, dtype=dt)
+        name: torch.from_numpy(np.array(fields[name])).to(device=device, dtype=dt)
         for name, dt in _DTYPES.items()
     }
     return KNNGraph(n_valid=int(fields["n_valid"]), **kw)
@@ -48,25 +51,45 @@ def graph_to_numpy(g: KNNGraph) -> dict:
     return out
 
 
+_COARSE = ("landmark_rows", "points", "members", "mem_ptr")
+
+
+def coarse_from_numpy(fields: dict, device="cpu") -> CoarseLevel:
+    """Reference ``CoarseLevel`` fields as numpy (``graph`` itself a dict of
+    graph fields) -> the port's ``CoarseLevel``."""
+    kw = {name: torch.from_numpy(np.array(fields[name])).to(device) for name in _COARSE}
+    kw["points"] = kw["points"].float()
+    return CoarseLevel(graph=graph_from_numpy(fields["graph"], device), **kw)
+
+
+def coarse_to_numpy(c: CoarseLevel) -> dict:
+    """The port's ``CoarseLevel`` -> {field: numpy array}, ``graph`` a dict."""
+    out = {name: getattr(c, name).cpu().numpy() for name in _COARSE}
+    out["graph"] = graph_to_numpy(c.graph)
+    return out
+
+
 # Reference BuildConfig fields with no counterpart here, and the one value
 # the port accepts for each (engine selection follows the tensor's device,
 # so ``dispatch``/``use_pallas`` carry no meaning and are dropped).
-_FIXED = {"data_bf16": False, "seed_mode": "random", "intra_wave": True}
-_DROPPED = ("dispatch", "use_pallas", "coarse_landmarks", "coarse_members", "coarse_top")
+_FIXED = {"data_bf16": False, "intra_wave": True}
+_DROPPED = ("dispatch", "use_pallas")
 
 
-def build_config_from_dict(d: dict) -> BuildConfig:
+def build_config_from_dict(d: dict, *, drop_unknown: bool = False) -> BuildConfig:
     """A reference ``BuildConfig.__dict__`` -> the port's ``BuildConfig``.
 
-    ``precision`` and ``rerank_factor`` are carried.  Raises for settings
-    the port does not run yet (coarse seeding, bf16 storage) rather than
-    dropping them silently."""
+    ``precision``, ``rerank_factor`` and the coarse-seeding fields are
+    carried.  Raises for settings the port does not run (bf16 storage, no
+    intra-wave tile) rather than dropping them silently, and for fields
+    neither package knows unless ``drop_unknown`` (a snapshot written by a
+    later version, whose new fields take their defaults here)."""
     for name, want in _FIXED.items():
         if name in d and d[name] != want:
             raise ValueError(f"the port runs {name}={want!r} only, got {d[name]!r}")
     fields = {f.name for f in dataclasses.fields(BuildConfig)}
     unknown = set(d) - fields - set(_FIXED) - set(_DROPPED)
-    if unknown:
+    if unknown and not drop_unknown:
         raise ValueError(f"unknown BuildConfig fields: {sorted(unknown)}")
     return BuildConfig(**{key: v for key, v in d.items() if key in fields})
 

@@ -8,13 +8,17 @@ rows, merges the candidate edges the searches logged into existing rows,
 updates the LGD occlusion factors λ (Rules 2/3) from distances the searches
 already computed, and appends the reverse lists.  W = 1 is the paper's
 sequential algorithm; ``lgd=False`` gives OLG.  ``precision`` picks the
-searches' distance engine (fp32, bf16, int8 or PQ rank-then-rerank).
+searches' distance engine (fp32, bf16, int8 or PQ rank-then-rerank);
+``seed_mode="coarse"`` seeds the insertion searches from a coarse landmark
+level (``core.hierarchy``) that the waves keep up to date.  ``build`` also
+resumes from a graph (``initial``), which is how ``core.dynamic.insert``
+adds rows online.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -28,8 +32,10 @@ from repro_torch.kernels import expand as expand_lib
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import precision as precision_lib
 
-# seed_fn(wave, pos, W, n_valid) -> (W, n_seeds) int entry points of a wave
-SeedFn = Callable[[int, int, int, int], torch.Tensor]
+# seed_fn(wave, pos, W, n_valid) -> the (W, n_seeds) int entry points of a
+# wave, or under coarse seeding the pair (seeds, (W, n_seeds) entry points of
+# the coarse pass over the landmarks)
+SeedFn = Callable[[int, int, int, int], Union[torch.Tensor, tuple]]
 
 # probe depth of the commit's D(q, x_j) lookups (the reference fixes it)
 _LOOKUP_PROBES = 8
@@ -52,9 +58,16 @@ class BuildConfig:
     # tile of the commit stays fp32
     precision: str = "fp32"  # "fp32" | "bf16" | "int8" | "pq"
     rerank_factor: int = 4  # pq: exact re-rank width = rerank_factor * k
+    # hierarchical entry-point seeding (core.hierarchy)
+    seed_mode: str = "random"  # "random" | "coarse"
+    coarse_landmarks: Optional[int] = None  # L; None = ~4·√n
+    coarse_members: int = 8  # M — member-cell ring capacity per landmark
+    coarse_top: int = 4  # T winning landmarks seeding each fine search
 
     def __post_init__(self):
         precision_lib.validate_precision(self.precision)
+        if self.seed_mode not in ("random", "coarse"):
+            raise ValueError(f"seed_mode must be 'random' or 'coarse', got {self.seed_mode!r}")
 
     def search_config(self) -> SearchConfig:
         return SearchConfig(
@@ -67,6 +80,8 @@ class BuildConfig:
             use_lgd_mask=self.lgd,
             precision=self.precision,
             rerank_factor=self.rerank_factor,
+            seed_mode=self.seed_mode,
+            coarse_top=self.coarse_top,
         )
 
 
@@ -110,7 +125,8 @@ def commit_wave(
     lanes = torch.arange(W, dtype=torch.int32, device=dev)
     q_ids = q_start + lanes
     q_mask = lanes < n_real
-    xq = x[q_ids.clamp_max(cap - 1).long()]
+    # padding lanes read the last row of x (cap exceeds x's rows on insert)
+    xq = x[q_ids.clamp_max(min(cap, x.shape[0]) - 1).long()]
     # wave-row caches, computed once: the l2 tile reuses the norms
     xq_sq = squared_norms(xq)
     xq_sc = row_scales(xq)
@@ -230,28 +246,47 @@ def wave_core(
     stats: BuildStats,
     cfg: BuildConfig,
     enc: Optional[precision_lib.EncodedData] = None,
-) -> tuple[KNNGraph, BuildStats]:
+    *,
+    coarse: Any = None,
+    coarse_seeds: Optional[torch.Tensor] = None,
+):
     """One wave: rows [pos, pos + W) search the graph from ``seeds`` (W, p)
     and are committed; the stats fold in the wave's comparisons.  ``enc``
-    is the compressed table of the whole of ``x`` (``cfg.precision``)."""
+    is the compressed table of the whole of ``x`` (``cfg.precision``).
+
+    With a ``coarse`` level (a ``core.hierarchy.CoarseLevel``) the searches
+    seed coarsely from ``coarse_seeds`` and each committed row joins its
+    winning landmark's cell; the return is then (graph, stats, coarse).
+    Without one it is (graph, stats), and ``seed_mode="coarse"`` seeds
+    randomly for this wave."""
     W = cfg.wave
     n = x.shape[0]
     n_real = min(W, n - pos)
     lanes = torch.arange(W, device=x.device)
     q = x[(pos + lanes).clamp_max(n - 1)]
+    scfg = cfg.search_config()
+    if coarse is None and scfg.seed_mode == "coarse":
+        scfg = dataclasses.replace(scfg, seed_mode="random")
     res = search_lib.search(
-        g, x, q, cfg.search_config(), seeds=seeds, enc=enc, device=x.device
+        g, x, q, scfg, seeds=seeds, enc=enc, coarse=coarse, coarse_seeds=coarse_seeds,
+        device=x.device,
     )
     res = res._replace(n_comps=torch.where(lanes < n_real, res.n_comps, 0))
     g2, edges = commit_wave(g, x, pos, n_real, res, cfg)
     comps = res.n_comps.sum()
     if W > 1:  # the intra-wave tile's pairs
         comps = comps + n_real * (n_real - 1) // 2
-    return g2, BuildStats(
+    stats2 = BuildStats(
         n_comps=stats.n_comps + comps,
         n_waves=stats.n_waves + 1,
         n_inserted_edges=stats.n_inserted_edges + edges,
     )
+    if coarse is None:
+        return g2, stats2
+    from repro_torch.core import hierarchy  # late: hierarchy imports construct
+
+    rows = torch.where(lanes < n_real, pos + lanes, -1).to(torch.int32)
+    return g2, stats2, hierarchy.note_inserted(coarse, rows, res.seed_cell)
 
 
 def build(
@@ -260,38 +295,126 @@ def build(
     *,
     generator: Optional[torch.Generator] = None,
     seed_fn: Optional[SeedFn] = None,
+    wave_callback: Optional[Callable[[int, KNNGraph], None]] = None,
+    callback_stride: int = 1,
+    initial: Optional[tuple[KNNGraph, int]] = None,
+    coarse: Any = None,
+    return_coarse: bool = False,
+    landmark_rows: Optional[torch.Tensor] = None,
+    landmark_seed_fn: Optional[SeedFn] = None,
+    tracker=None,
     device=None,
-) -> tuple[KNNGraph, BuildStats]:
+):
     """Build the k-NN graph over x (n, d) with OLG (``cfg.lgd=False``) or LGD.
 
     The exact seed graph covers the first ``n_seed_init`` rows; then each
     wave's entry points come from ``seed_fn(wave, pos, W, n_valid)`` when
-    given (replayed or injected seeds), else from ``generator`` (uniform
-    over the committed rows).  ``device``: where to run (None: the card,
-    raising without one).
+    given (replayed or injected seeds; under coarse seeding it may return
+    ``(seeds, coarse_seeds)``), else from ``generator`` (uniform over the
+    committed rows, and over the landmarks for the coarse pass).
+
+    ``initial=(graph, next_row)`` resumes instead: no seed graph and no
+    pre-charge, waves from ``next_row``; the caller's graph is left
+    untouched.  Under ``seed_mode="coarse"`` without a ``coarse`` level, one
+    is bootstrapped before the first wave: over the whole of ``x`` with its
+    comparisons charged (``hierarchy.build_coarse``) from scratch, or
+    derived from the resumed graph, uncharged (``hierarchy.derive_coarse``).
+    ``landmark_rows`` and ``landmark_seed_fn`` inject that level's landmarks
+    and the entry points of its landmark-graph build.
+
+    ``wave_callback(n_waves, graph)`` runs every ``callback_stride`` waves.
+    ``tracker`` (an ``obs.Tracker``) times each stride under a
+    ``build/stride`` span synced on the graph and logs the cumulative
+    counters there; without one nothing is timed or synced.  ``device``:
+    where to run (None: the card, raising without one).
+
+    Returns (graph, stats), plus the coarse level when ``return_coarse``.
     """
+    from repro_torch.core import hierarchy  # late: hierarchy imports construct
+    from repro_torch.obs import NOOP
+
+    if callback_stride < 1:
+        raise ValueError(f"callback_stride must be >= 1, got {callback_stride}")
     dev = device_lib.resolve(device)
     x = x.to(dev).float()
     n = x.shape[0]
     # one encode of the whole dataset serves every wave: rows not yet
     # inserted are never candidates, so encoding them early changes nothing
     enc = precision_lib.encode_dataset(x, cfg.precision)
-    n_seed = min(cfg.n_seed_init, n)
-    g = brute.exact_seed_graph(
-        x, n_seed, cfg.k, cfg.metric, rev_capacity=cfg.rev_cap, device=dev
-    )
+    coarse_kw = dict(landmark_rows=landmark_rows, seed_fn=landmark_seed_fn,
+                     generator=generator, device=dev)
+    if initial is not None:
+        g, start = initial
+        g = g.to(dev)
+        if coarse is None and cfg.seed_mode == "coarse" and start > 0:
+            coarse = hierarchy.derive_coarse(g, x, cfg, **coarse_kw)
+        pre_charge = 0
+    else:
+        n_seed = min(cfg.n_seed_init, n)
+        g = brute.exact_seed_graph(
+            x, n_seed, cfg.k, cfg.metric, rev_capacity=cfg.rev_cap, device=dev
+        )
+        start = n_seed
+        pre_charge = n_seed * (n_seed - 1) // 2  # seed-graph comps
+        if coarse is None and cfg.seed_mode == "coarse":
+            coarse, coarse_comps = hierarchy.build_coarse(
+                x, cfg, assign_rows=torch.arange(n_seed, dtype=torch.int32, device=dev),
+                **coarse_kw,
+            )
+            pre_charge += coarse_comps
+    if coarse is not None:
+        coarse = coarse.to(dev)
     stats = BuildStats(
-        n_comps=counter(n_seed * (n_seed - 1) // 2, dev),  # seed-graph comps
-        n_waves=0,
-        n_inserted_edges=counter(0, dev),
+        n_comps=counter(pre_charge, dev), n_waves=0, n_inserted_edges=counter(0, dev)
     )
+    trk = tracker if tracker is not None else NOOP
     W = cfg.wave
-    pos = n_seed
+    pos = start
     while pos < n:
-        if seed_fn is not None:
-            seeds = torch.as_tensor(seed_fn(stats.n_waves, pos, W, g.n_valid))
-        else:
-            seeds = search_lib.random_seeds(W, cfg.n_seeds, g.n_valid, generator, dev)
-        g, stats = wave_core(g, x, pos, seeds.to(dev), stats, cfg, enc)
-        pos += min(W, n - pos)
+        with trk.span("build/stride") as sp:
+            stride_end = stats.n_waves + callback_stride
+            while pos < n and stats.n_waves < stride_end:
+                seeds, coarse_seeds = _wave_seeds(
+                    seed_fn, generator, stats.n_waves, pos, W, g.n_valid, cfg, coarse, dev
+                )
+                out = wave_core(g, x, pos, seeds, stats, cfg, enc,
+                                coarse=coarse, coarse_seeds=coarse_seeds)
+                if coarse is None:
+                    g, stats = out
+                else:
+                    g, stats, coarse = out
+                pos += min(W, n - pos)
+            sp.sync(g.nbr_ids)
+        if wave_callback is not None and stats.n_waves % callback_stride == 0:
+            wave_callback(stats.n_waves, g)
+        if tracker is not None:
+            comps = int(stats.n_comps)
+            trk.log_metrics(
+                {
+                    "build/rows_inserted": pos,
+                    "build/n_comps": comps,
+                    "build/n_inserted_edges": int(stats.n_inserted_edges),
+                    "build/scanning_rate_partial": comps / (n * (n - 1) / 2.0) if n > 1 else 0.0,
+                },
+                step=stats.n_waves,
+            )
+    if return_coarse:
+        return g, stats, coarse
     return g, stats
+
+
+def _wave_seeds(seed_fn, generator, wave, pos, W, n_valid, cfg, coarse, dev):
+    """A wave's (seeds, coarse_seeds): ``seed_fn``'s, else drawn from
+    ``generator`` (the coarse pass's first, as the reference splits its key)."""
+    seeds = coarse_seeds = None
+    if seed_fn is not None:
+        out = seed_fn(wave, pos, W, n_valid)
+        seeds, coarse_seeds = out if isinstance(out, tuple) else (out, None)
+    if coarse is not None and cfg.seed_mode == "coarse" and coarse_seeds is None:
+        coarse_seeds = search_lib.random_seeds(
+            W, cfg.n_seeds, coarse.graph.n_valid, generator, dev
+        )
+    if seeds is None:
+        seeds = search_lib.random_seeds(W, cfg.n_seeds, n_valid, generator, dev)
+    seeds = torch.as_tensor(seeds).to(dev)
+    return seeds, None if coarse_seeds is None else torch.as_tensor(coarse_seeds).to(dev)

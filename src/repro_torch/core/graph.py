@@ -108,6 +108,31 @@ def attach_sq_norms(g: KNNGraph, x: torch.Tensor) -> KNNGraph:
     )
 
 
+def grow_graph(g: KNNGraph, new_capacity: int) -> KNNGraph:
+    """Extend capacity with unallocated rows: ids -1, distances +inf, λ,
+    reverse counters and caches 0, not alive."""
+    extra = new_capacity - g.capacity
+    if extra <= 0:
+        return g
+    tail = empty_graph(extra, g.k, g.rev_capacity, device=g.nbr_ids.device)
+    return KNNGraph(*(
+        torch.cat([a, b]) if isinstance(a, torch.Tensor) else a
+        for a, b in zip(g, tail)
+    ))._replace(n_valid=g.n_valid)
+
+
+def trim_graph(g: KNNGraph, new_capacity: int) -> KNNGraph:
+    """Drop unallocated tail rows (the inverse of ``grow_graph``); rows below
+    ``n_valid`` cannot be trimmed."""
+    if new_capacity >= g.capacity:
+        return g
+    if new_capacity < g.n_valid:
+        raise ValueError(f"cannot trim below n_valid: {new_capacity} < {g.n_valid}")
+    return KNNGraph(*(
+        a[:new_capacity] if isinstance(a, torch.Tensor) else a for a in g
+    ))
+
+
 def rebuild_reverse(g: KNNGraph) -> KNNGraph:
     """Recompute the reverse lists from the forward lists: edges grouped by
     member, each member keeping its first R owners in owner order, the

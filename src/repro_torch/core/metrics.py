@@ -22,18 +22,22 @@ def normalize_rows(a: torch.Tensor) -> torch.Tensor:
     return a / torch.linalg.norm(a, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
+def _t(a):
+    return a.transpose(-1, -2)
+
+
 def _l2(q, x):
     qn = (q * q).sum(-1, keepdim=True)
-    xn = (x * x).sum(-1, keepdim=True).T
-    return (qn + xn - 2.0 * (q @ x.T)).clamp_min(0.0)
+    xn = _t((x * x).sum(-1, keepdim=True))
+    return (qn + xn - 2.0 * (q @ _t(x))).clamp_min(0.0)
 
 
 def _ip(q, x):
-    return -(q @ x.T)
+    return -(q @ _t(x))
 
 
 def _cosine(q, x):
-    return 1.0 - normalize_rows(q) @ normalize_rows(x).T
+    return 1.0 - normalize_rows(q) @ _t(normalize_rows(x))
 
 
 def _l1_term(qq, xx):
@@ -48,16 +52,16 @@ def _chi2_term(qq, xx):
 
 def _direct(term, q, x):
     """sum_d term(q_d, x_d) in feature blocks of 128 (as the JAX scan)."""
-    m, d = q.shape
-    n = x.shape[0]
+    *batch, m, d = q.shape
+    n = x.shape[-2]
     block = 128 if d > 128 else d
-    out = torch.zeros((m, n), dtype=torch.float32, device=q.device)
-    rows = max(1, _BROADCAST_ELEMS // max(1, n * block))
+    out = torch.zeros((*batch, m, n), dtype=torch.float32, device=q.device)
+    rows = max(1, _BROADCAST_ELEMS // max(1, out[..., :1, :].numel() * block))
     for r0 in range(0, m, rows):
-        qr = q[r0:r0 + rows]
-        acc = out[r0:r0 + rows]
+        qr = q[..., r0:r0 + rows, :]
+        acc = out[..., r0:r0 + rows, :]
         for j in range(0, d, block):
-            acc += term(qr[:, None, j:j + block], x[None, :, j:j + block]).sum(-1)
+            acc += term(qr[..., :, None, j:j + block], x[..., None, :, j:j + block]).sum(-1)
     return out
 
 
@@ -71,7 +75,8 @@ _PAIRWISE = {
 
 
 def pairwise(metric: str, q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(m, d) queries x (n, d) points -> (m, n) float32 distances."""
+    """(..., m, d) queries x (..., n, d) points -> (..., m, n) float32
+    distances; leading dims are a batch of independent products."""
     if metric not in _PAIRWISE:
         raise KeyError(f"unknown metric {metric!r}; have {sorted(_PAIRWISE)}")
     return _PAIRWISE[metric](q.float(), x.float())

@@ -1,7 +1,8 @@
 """Batched Enhanced Hill-Climbing (EHC, Alg. 1 and the LGD-aware expansion
-of Alg. 3) — counterpart of ``repro.core.search``, with random entry points
-and the distance engine at fp32, bf16, int8 or PQ rank-then-rerank
-(``SearchConfig.precision``, ``kernels.precision``).
+of Alg. 3) — counterpart of ``repro.core.search``, with random or coarse
+(``core.hierarchy``) entry points and the distance engine at fp32, bf16,
+int8 or PQ rank-then-rerank (``SearchConfig.precision``,
+``kernels.precision``).
 
 A wave of B queries climbs at once.  Each lane keeps a beam of e (ids,
 dists, expanded flags) and a per-lane open-addressing hash of every vertex
@@ -17,7 +18,7 @@ per iteration stands in for the reference's ``lax.while_loop``.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -42,7 +43,12 @@ def auto_hash_slots(beam: int, max_iters: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SearchConfig:
-    """EHC search configuration (random entry points)."""
+    """EHC search configuration.
+
+    ``seed_mode="coarse"`` seeds each lane from a short EHC pass over a
+    coarse landmark graph (a ``core.hierarchy.CoarseLevel``): the winning
+    ``coarse_top`` landmarks' rows, their member cells, then the p random
+    entry points."""
 
     k: int = 10  # result size; also the improvement-termination horizon
     beam: int = 64  # beam width e >= k
@@ -56,10 +62,16 @@ class SearchConfig:
     hard_diversify: bool = False  # ablation: skip any λ > 0
     precision: str = "fp32"  # "fp32" | "bf16" | "int8" | "pq"
     rerank_factor: int = 4  # pq: exact re-rank width = rerank_factor * k
+    seed_mode: str = "random"  # "random" | "coarse"
+    coarse_top: int = 4  # T winning landmarks whose cells seed the beam
+    coarse_beam: int = 16  # beam width of the coarse EHC pass
+    coarse_iters: int = 16  # max_iters of the coarse EHC pass
 
     def __post_init__(self):
         if self.beam < self.k:
             raise ValueError(f"beam must be >= k, got beam={self.beam} k={self.k}")
+        if self.seed_mode not in ("random", "coarse"):
+            raise ValueError(f"seed_mode must be 'random' or 'coarse', got {self.seed_mode!r}")
         precision_lib.validate_precision(self.precision)
         if self.rerank_factor < 1:
             raise ValueError(f"rerank_factor must be >= 1, got {self.rerank_factor}")
@@ -81,6 +93,8 @@ class SearchResult(NamedTuple):
     converged: torch.Tensor  # (B,) bool — False = stopped by max_iters
     hash_full: torch.Tensor  # (B,) bool — some computed distance was not
     #   recorded in the D array (probe depth exhausted or slot collision)
+    seed_cell: torch.Tensor  # (B,) int32 — winning coarse landmark, -1 under
+    #   random seeding (assigns an inserted row to its cell for free)
 
 
 class SearchState(NamedTuple):
@@ -94,6 +108,7 @@ class SearchState(NamedTuple):
     done: torch.Tensor
     hash_full: torch.Tensor
     fill: torch.Tensor  # (B,) occupied hash slots
+    seed_cell: torch.Tensor  # (B,) int32
 
 
 def _hash_fill(vis_ids: torch.Tensor) -> torch.Tensor:
@@ -181,6 +196,24 @@ def step(
         done=st.done | newly_done,
         hash_full=hash_full,
         fill=fill,
+        seed_cell=st.seed_cell,
+    )
+
+
+def coarse_config(cfg: SearchConfig) -> SearchConfig:
+    """The short coarse-graph pass of a ``seed_mode="coarse"`` config:
+    top-``coarse_top`` over a small beam and few iterations, random seeding,
+    no LGD filter, exact fp32 distances."""
+    return dataclasses.replace(
+        cfg,
+        k=cfg.coarse_top,
+        beam=max(cfg.coarse_beam, cfg.coarse_top),
+        hash_slots=None,
+        max_iters=cfg.coarse_iters,
+        use_lgd_mask=False,
+        hard_diversify=False,
+        seed_mode="random",
+        precision="fp32",
     )
 
 
@@ -197,14 +230,40 @@ def random_seeds(
 def init_state(
     g: KNNGraph, x: torch.Tensor, q: torch.Tensor, seeds: torch.Tensor,
     cfg: SearchConfig, enc: Optional[precision_lib.EncodedData] = None,
+    *, coarse: Any = None, coarse_seeds: Optional[torch.Tensor] = None,
 ) -> SearchState:
     """Pre-loop state: the (B, p) entry points deduped, masked to alive
     allocated rows, scored, hashed and merged into an empty beam (Alg. 1
-    line 5)."""
+    line 5).
+
+    Under ``seed_mode="coarse"`` a short EHC pass over ``coarse`` (a
+    ``core.hierarchy.CoarseLevel``) from ``coarse_seeds`` (B, p) landmark
+    entry points comes first: the winners' landmark rows and member cells
+    go ahead of ``seeds``, the pass's comparisons are pre-charged and its
+    ``hash_full`` carried, and its top-1 landmark is ``seed_cell``."""
     B = q.shape[0]
     e, H = cfg.beam, cfg.hash_slots
     dev = q.device
     seeds = seeds.to(device=dev, dtype=torch.int32)
+    if cfg.seed_mode == "coarse":
+        if coarse is None or coarse_seeds is None:
+            raise ValueError(
+                "seed_mode='coarse' needs a coarse level (core.hierarchy.CoarseLevel) "
+                "and its entry points"
+            )
+        cres = search(coarse.graph, coarse.points, q, coarse_config(cfg),
+                      seeds=coarse_seeds, device=dev)
+        win = cres.ids  # (B, T) landmark indices, -1 padded
+        safe = win.clamp_min(0).long()
+        lm_rows = torch.where(win >= 0, coarse.landmark_rows[safe], -1)
+        members = torch.where(win[:, :, None] >= 0, coarse.members[safe], -1).reshape(B, -1)
+        seeds = torch.cat([lm_rows, members, seeds], dim=1)
+        seed_cell = win[:, 0].contiguous()
+        pre_comps, pre_full = cres.n_comps, cres.hash_full
+    else:
+        seed_cell = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        pre_comps = torch.zeros(B, dtype=torch.int32, device=dev)
+        pre_full = torch.zeros(B, dtype=torch.bool, device=dev)
     seeds = torch.where(segments.mask_row_duplicates(seeds), -1, seeds)
     in_range = (seeds >= 0) & (seeds < g.n_valid)
     alive = g.alive[seeds.clamp(0, g.capacity - 1).long()]
@@ -236,11 +295,12 @@ def init_state(
         beam_exp=torch.gather(cat_exp, 1, sel),
         vis_ids=vis_ids,
         vis_dist=vis_dist,
-        n_comps=seed_comps,
+        n_comps=pre_comps + seed_comps,
         n_iters=torch.zeros(B, dtype=torch.int32, device=dev),
         done=torch.zeros(B, dtype=torch.bool, device=dev),
-        hash_full=fill < seed_comps,
+        hash_full=pre_full | (fill < seed_comps),
         fill=fill,
+        seed_cell=seed_cell,
     )
 
 
@@ -253,12 +313,17 @@ def search(
     seeds: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     enc: Optional[precision_lib.EncodedData] = None,
+    coarse: Any = None,
+    coarse_seeds: Optional[torch.Tensor] = None,
     device=None,
 ) -> SearchResult:
     """Batched EHC search of queries q (B, d) against graph g over x (n, d).
 
     Entry points are the injected ``seeds`` (B, p) when given, else p
-    uniform draws from ``generator``.  ``enc`` is the compressed table
+    uniform draws from ``generator``.  ``seed_mode="coarse"`` also needs
+    ``coarse`` (a ``core.hierarchy.CoarseLevel``) and takes the coarse
+    pass's (B, p) landmark entry points from ``coarse_seeds``, else from
+    ``generator`` (drawn before ``seeds``).  ``enc`` is the compressed table
     matching ``cfg.precision`` (ignored for fp32); it is encoded from ``x``
     when absent, int8 reusing ``g.row_scale`` when it covers every row of
     ``x``.  ``device`` is where to run (None: the card, raising without
@@ -272,9 +337,13 @@ def search(
                 x, cfg.precision, row_scale=g.row_scale if reuse else None
             )
         enc = enc.to(dev)
+    if cfg.seed_mode == "coarse" and coarse is not None and coarse_seeds is None:
+        coarse_seeds = random_seeds(
+            q.shape[0], cfg.n_seeds, coarse.graph.n_valid, generator, dev
+        )
     if seeds is None:
         seeds = random_seeds(q.shape[0], cfg.n_seeds, g.n_valid, generator, dev)
-    st = init_state(g, x, q, seeds, cfg, enc)
+    st = init_state(g, x, q, seeds, cfg, enc, coarse=coarse, coarse_seeds=coarse_seeds)
     for _ in range(cfg.max_iters):
         if bool(st.done.all()):  # the loop's one host read
             break
@@ -288,4 +357,5 @@ def search(
         n_iters=st.n_iters,
         converged=st.done,
         hash_full=st.hash_full,
+        seed_cell=st.seed_cell,
     )

@@ -120,11 +120,13 @@ def encode_dataset(
     precision: str,
     *,
     row_scale: Optional[torch.Tensor] = None,
+    codebook: Optional[torch.Tensor] = None,
 ) -> Optional[EncodedData]:
     """The engine's compressed table for ``x``; None for fp32.
 
     ``row_scale`` reuses the graph's int8 scale cache (derived from ``x``
-    when absent); pq trains its codebook on ``x``."""
+    when absent); pq encodes with ``codebook`` (a pinned code space), else
+    trains one on ``x``."""
     validate_precision(precision)
     if precision == "fp32":
         return None
@@ -133,7 +135,8 @@ def encode_dataset(
     if precision == "int8":
         scale = row_scales(x) if row_scale is None else row_scale.float()
         return EncodedData(data=quantize_int8(x, scale), scale=scale)
-    codebook = train_pq_codebook(x)
+    if codebook is None:
+        codebook = train_pq_codebook(x)
     return EncodedData(codes=pq_encode(x, codebook), codebook=codebook)
 
 

@@ -369,3 +369,54 @@ def test_compressed_build_kernels_match_plain(card, monkeypatch, precision):
         assert torch.equal(getattr(g_k, name), getattr(g_p, name)), name
     assert int(st_k.n_comps) == int(st_p.n_comps)
     assert ops.launch_counts() == counts
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("B", [1, 37, 64])
+@pytest.mark.parametrize("integer", [True, False])
+def test_serving_shapes(card, precision, B, integer):
+    """The serving searches' shapes at d=128: the coarse seed gather (C=44:
+    T + T·M + p = 4 + 32 + 8) and chained expansions at beam 64 (C=60, e=64,
+    H=auto_hash_slots(64, 60)=2048, P=8).  Bit for bit on integer rows;
+    Gaussian distances within rtol=1e-5, atol=1e-3, hash ids and comps
+    exact."""
+    n, d, C, e, H, P = 2000, 128, 60, 64, 2048, 8
+    rng = np.random.RandomState(B)
+    x = _data((n, d), 21, "l2", integer, card)
+    q = _data((B, d), 22, "l2", integer, card)
+    sq = (x * x).sum(-1)
+    enc = precision_lib.encode_dataset(x, precision)
+    table, scale = (x, None) if precision == "fp32" else (enc.data, enc.scale)
+
+    def close(a, b, what):
+        if integer:
+            assert torch.equal(a, b), what
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3, msg=what)
+
+    idx = torch.from_numpy(rng.randint(-1, n, (B, 44))).int().to(card)
+    close(gather_dist.gather_distance(q, table, idx, "l2", sq_norms=sq, row_scale=scale),
+          ref.gather_distance(q, x, idx, "l2", sq_norms=sq, enc=enc, precision=precision),
+          "gather")
+    state = (
+        torch.full((B, e), -1, dtype=torch.int32, device=card),
+        torch.full((B, e), float("inf"), device=card),
+        torch.ones((B, e), dtype=torch.bool, device=card),
+        torch.full((B, H), -1, dtype=torch.int32, device=card),
+        torch.full((B, H), float("inf"), device=card),
+    )
+    for step in range(3):
+        c = rng.randint(-1, n, (B, C))
+        c[:, :20] = np.where(rng.rand(B, 20) < 0.5, state[0].cpu().numpy()[:, :20], c[:, :20])
+        cands = torch.from_numpy(c).int().to(card)
+        got = expand.fused_expand(q, table, cands, *state[:3], *(t.clone() for t in state[3:]),
+                                  metric="l2", probes=P, sq_norms=sq, row_scale=scale)
+        want = expand.expand_reference(q, x, cands, *state[:3], *(t.clone() for t in state[3:]),
+                                       metric="l2", probes=P, sq_norms=sq, enc=enc,
+                                       precision=precision)
+        for name, a, b in zip(FIELDS, got, want):
+            if name in ("vis_ids", "comps"):
+                assert torch.equal(a, b), f"step {step} {name}"
+            elif integer or name in ("beam_dist", "vis_dist"):
+                close(a.float(), b.float(), f"step {step} {name}")
+        state = want[:5]

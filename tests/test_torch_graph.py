@@ -126,13 +126,20 @@ def test_build_config_from_reference_dict():
     cfg = convert.build_config_from_dict(ref.__dict__)
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
-    # compressed precisions are carried; settings the port does not run raise
+    # compressed precisions and coarse seeding are carried; settings the
+    # port does not run raise
     assert convert.build_config_from_dict(
         dataclasses.replace(ref, precision="int8").__dict__).precision == "int8"
     with pytest.raises(ValueError):
         convert.build_config_from_dict(dataclasses.replace(ref, data_bf16=True).__dict__)
-    with pytest.raises(ValueError):
-        convert.build_config_from_dict(dataclasses.replace(ref, seed_mode="coarse").__dict__)
+    coarse = dataclasses.replace(ref, seed_mode="coarse", coarse_landmarks=77, coarse_members=5,
+                                 coarse_top=3)
+    cfg = convert.build_config_from_dict(coarse.__dict__)
+    for name in ("seed_mode", "coarse_landmarks", "coarse_members", "coarse_top"):
+        assert getattr(cfg, name) == getattr(coarse, name), name
+    jscfg, tscfg = coarse.search_config(), cfg.search_config()
+    for name in ("seed_mode", "coarse_top", "coarse_beam", "coarse_iters"):
+        assert getattr(tscfg, name) == getattr(jscfg, name), name
 
 
 def test_build_config_round_trips_pq_rerank_factor():

@@ -7,9 +7,12 @@ can be fed the same seeds, and move graphs between the two as numpy.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import brute as jbrute
@@ -37,7 +40,30 @@ def gauss_data(n: int, d: int, seed: int = 0) -> np.ndarray:
 
 # the reference's exact_seed_graph runs op by op when called eagerly; one
 # compile of the whole function is an order of magnitude faster on the CPU
-jax_exact_seed_graph = jax.jit(jbrute.exact_seed_graph, static_argnums=(1, 2, 3))
+jax_exact_seed_graph = jax.jit(
+    jbrute.exact_seed_graph, static_argnums=(1, 2, 3),
+    static_argnames=("capacity", "rev_capacity", "use_pallas", "dispatch"),
+)
+
+
+@contextlib.contextmanager
+def compiled_reference():
+    """Within the block, the reference functions that its builds and
+    snapshot loads call outside any compiled step — ``brute.exact_seed_graph``
+    (the seed graph and a coarse level's landmark graph),
+    ``hierarchy.note_inserted`` (the seed prefix's cell assignment) and
+    ``graph.rebuild_reverse``/``attach_sq_norms`` (restores) — run compiled
+    once per shape instead of op by op: the same functions, at a tenth of
+    their first-call time on the CPU."""
+    from repro.core import graph as jgraph
+    from repro.core import hierarchy as jhier
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jbrute, "exact_seed_graph", jax_exact_seed_graph)
+        for module, name in ((jhier, "note_inserted"), (jgraph, "rebuild_reverse"),
+                             (jgraph, "attach_sq_norms")):
+            mp.setattr(module, name, jax.jit(getattr(module, name)))
+        yield
 
 
 def encoded_numpy(enc) -> dict:
@@ -68,10 +94,23 @@ def search_seeds(key, B: int, p: int, n_valid: int) -> np.ndarray:
     )
 
 
-def build_seed_fn(key, p: int):
+def search_entry(key, B: int, p: int, n_valid: int, n_landmarks=None):
+    """What ``repro.core.search.init_state`` draws from ``key``: the (B, p)
+    seeds under random seeding; under coarse seeding (``n_landmarks`` given)
+    the pair (seeds, coarse-pass seeds) from its ``key_c, key_r`` split
+    (``search.py:374``), the coarse pass drawing over the landmarks."""
+    if n_landmarks is None:
+        return torch.from_numpy(np.array(search_seeds(key, B, p, n_valid)))
+    key_c, key_r = jax.random.split(key)
+    return (torch.from_numpy(np.array(search_seeds(key_r, B, p, n_valid))),
+            torch.from_numpy(np.array(search_seeds(key_c, B, p, n_landmarks))))
+
+
+def build_seed_fn(key, p: int, n_landmarks=None):
     """A port ``seed_fn`` replaying the reference build's key chain: one
     ``key, sk = split(key)`` per wave (``construct.py:490``), then the
-    search's draw from ``sk`` over the rows committed so far."""
+    search's draw from ``sk`` over the rows committed so far (and over the
+    landmarks under coarse seeding)."""
     subkeys = []
 
     def seed_fn(wave: int, pos: int, W: int, n_valid: int):
@@ -79,9 +118,90 @@ def build_seed_fn(key, p: int):
         while len(subkeys) <= wave:
             key, sk = jax.random.split(key)
             subkeys.append(sk)
-        return torch.from_numpy(np.array(search_seeds(subkeys[wave], W, p, n_valid)))
+        return search_entry(subkeys[wave], W, p, n_valid, n_landmarks)
 
     return seed_fn
+
+
+def search_seed_fn(key, p: int, n_landmarks=None):
+    """A port search ``seed_fn(B, n_valid)`` replaying a chain of searches
+    from ``key``, one ``key, k = split(key)`` per search
+    (``ServingLoop._next_key``, ``loop.py:147``)."""
+
+    def seed_fn(B: int, n_valid: int):
+        nonlocal key
+        key, k = jax.random.split(key)
+        return search_entry(k, B, p, n_valid, n_landmarks)
+
+    return seed_fn
+
+
+def fixed_seed_fn(key, p: int, n_landmarks=None):
+    """A port search ``seed_fn`` that draws from the same ``key`` on every
+    call, as ``OnlineIndex.search`` does with its default ``PRNGKey(0)``."""
+    return lambda B, n_valid: search_entry(key, B, p, n_valid, n_landmarks)
+
+
+def coarse_build_kw(key, n: int, L: int, p: int) -> tuple:
+    """The reference's from-scratch coarse build (``construct.py:509-513``,
+    ``hierarchy.py:703-707``) as port keyword arguments: ``key, ck =
+    split(key)``; the landmarks are ``choice(key_s, n, (L,))`` and the
+    landmark graph builds from ``key_b``; the waves replay ``key``."""
+    key, ck = jax.random.split(key)
+    key_s, key_b = jax.random.split(ck)
+    rows = jax.random.choice(key_s, n, shape=(L,), replace=False).astype(jnp.int32)
+    return dict(
+        seed_fn=build_seed_fn(key, p, L),
+        landmark_rows=torch.from_numpy(np.array(rows)),
+        landmark_seed_fn=build_seed_fn(key_b, p),
+    )
+
+
+def derive_coarse_kw(key, alive: np.ndarray, n_valid: int, L, p: int) -> dict:
+    """The reference's ``derive_coarse(g, x, cfg, key)`` draws
+    (``hierarchy.py:758-769``) as port keyword arguments: landmarks are a
+    permutation of the alive rows, the landmark graph builds from
+    ``key_b``.  ``L`` None takes the default count."""
+    from repro.core import hierarchy as jhier
+
+    rows = np.nonzero(np.asarray(alive)[:n_valid])[0].astype(np.int32)
+    L = min(L or jhier.default_landmarks(rows.size), rows.size)
+    key_s, key_b = jax.random.split(key)
+    perm = np.array(jax.random.permutation(key_s, rows.size)[:L])
+    return dict(landmark_rows=torch.from_numpy(rows[perm]),
+                landmark_seed_fn=build_seed_fn(key_b, p))
+
+
+def insert_kw(key, p: int, *, coarse_derive=None, n_landmarks=None) -> dict:
+    """``repro.core.dynamic.insert``'s draws from ``key`` as port keyword
+    arguments.  ``coarse_derive=(alive, n_valid, L)`` when the insert
+    derives a coarse level first (``construct.py:499-502``)."""
+    kw = {}
+    if coarse_derive is not None:
+        key, ck = jax.random.split(key)
+        alive, n_valid, L = coarse_derive
+        kw = derive_coarse_kw(ck, alive, n_valid, L, p)
+        n_landmarks = len(kw["landmark_rows"])
+    kw["seed_fn"] = build_seed_fn(key, p, n_landmarks)
+    return kw
+
+
+def coarse_numpy(c) -> dict:
+    """Reference ``CoarseLevel`` -> numpy fields, ``graph`` a dict."""
+    out = {name: np.asarray(getattr(c, name))
+           for name in ("landmark_rows", "points", "members", "mem_ptr")}
+    out["graph"] = jax_graph_numpy(c.graph)
+    return out
+
+
+def assert_coarse_equal(c_torch, c_jax, err: str = "") -> None:
+    got = convert.coarse_to_numpy(c_torch)
+    want = coarse_numpy(c_jax)
+    for name in ("landmark_rows", "points", "members", "mem_ptr"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=f"{err} coarse {name}")
+    for name in GRAPH_FIELDS:
+        np.testing.assert_array_equal(got["graph"][name], want["graph"][name],
+                                      err_msg=f"{err} coarse graph {name}")
 
 
 def build_both(x: np.ndarray, seed: int, **kw):
@@ -116,3 +236,59 @@ def assert_graphs_equal(g_torch, g_jax, err: str = "") -> None:
     want = jax_graph_numpy(g_jax)
     for name in GRAPH_FIELDS:
         np.testing.assert_array_equal(got[name], want[name], err_msg=f"{err} field {name}")
+
+
+def online_index_both(x: np.ndarray, cfg: dict, seed: int = 1, **kw):
+    """``OnlineIndex.build`` of the reference (``dispatch="reference"``)
+    from ``PRNGKey(seed)`` and of the port from the replayed draws."""
+    from repro.index import OnlineIndex as JIndex
+    from repro_torch.index import OnlineIndex as TIndex
+
+    key = jax.random.PRNGKey(seed)
+    jidx = JIndex.build(jnp.asarray(x), jconstruct.BuildConfig(dispatch="reference", **cfg),
+                        key=key, **kw)
+    if cfg.get("seed_mode") == "coarse":
+        inject = coarse_build_kw(key, len(x), cfg["coarse_landmarks"], cfg["n_seeds"])
+    else:
+        inject = dict(seed_fn=build_seed_fn(key, cfg["n_seeds"]))
+    tidx = TIndex.build(torch.from_numpy(x), tconstruct.BuildConfig(**cfg), device="cpu",
+                        **inject, **kw)
+    return jidx, tidx
+
+
+def assert_index_equal(tidx, jidx, err: str = "") -> None:
+    """Graph, data, ledger, sizes and coarse level of two ``OnlineIndex``es."""
+    assert_graphs_equal(tidx.graph, jidx.graph, err)
+    np.testing.assert_array_equal(tidx.items.numpy(), np.asarray(jidx.items), err_msg=err)
+    assert tidx.free_ids == tuple(int(i) for i in jidx.free_ids), err
+    assert (tidx.capacity, tidx.n_items, tidx.n_pending) == (
+        jidx.capacity, jidx.n_items, jidx.n_pending), err
+    assert (tidx.coarse is None) == (jidx.coarse is None), err
+    if tidx.coarse is not None:
+        assert_coarse_equal(tidx.coarse, jidx.coarse, err)
+
+
+def n_landmarks(idx):
+    return None if idx.coarse is None else idx.coarse.n_landmarks
+
+
+def add_both(jidx, tidx, rows: np.ndarray, seed: int, flush: bool = True) -> None:
+    """The same rows added to both indexes, the insertion keyed by
+    ``PRNGKey(seed)`` and replayed."""
+    key = jax.random.PRNGKey(seed)
+    jidx.add(jnp.asarray(rows), key=key, flush=flush)
+    tidx.add(torch.from_numpy(rows), seed_fn=build_seed_fn(key, tidx.build_cfg.n_seeds,
+                                                           n_landmarks(tidx)), flush=flush)
+
+
+def search_both(jidx, tidx, q: np.ndarray, k: int, beam=None, seed: int = 0):
+    """One search of both indexes from ``PRNGKey(seed)``; ids, distances,
+    counters and ``seed_cell`` must be equal."""
+    key = jax.random.PRNGKey(seed)
+    want = jidx.search(jnp.asarray(q), k, beam=beam, key=key)
+    got = tidx.search(torch.from_numpy(q), k, beam=beam,
+                      seed_fn=fixed_seed_fn(key, tidx.build_cfg.n_seeds, n_landmarks(tidx)))
+    for name in ("ids", "dists", "n_comps", "hash_full", "seed_cell"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    return got, want
