@@ -28,7 +28,10 @@ needs one NVIDIA card and runs, in order:
    time.  Then the serving searches' shapes: the gather at B in {1, 37, 64}
    with C=44 coarse seeds (T + T·M + p = 4 + 32 + 8) and ``fused_expand`` at
    the same B with C=60, e=64, H=2048, each storage type against its plain
-   version (exact on integer rows), B=64 timed;
+   version (exact on integer rows), B=64 timed, and ``pairwise_distance``,
+   norms uncached, at the recall audit's tile (96 queries against 8,192
+   rows) and ``nearest_landmark``'s chunk (4,096 rows against 4,000
+   landmarks), exact on integer rows, to the tolerance on clustered rows;
 3. an n=20,000, d=32 integer-valued build with the kernels and the same
    build with the plain versions, from the same injected seeds, at fp32,
    int8 and bf16: every graph array and the counters must be identical.  On
@@ -328,11 +331,12 @@ class Smoke:
 
     def serving_shapes(self, xi):
         """The serving searches' shapes: the coarse seed gather (C=44) and
-        the expansion at beam 64 (C=60, e=64, H=2048), at B = 1, 37, 64."""
+        the expansion at beam 64 (C=60, e=64, H=2048), at B = 1, 37, 64;
+        the pairwise tiles of the recall audit and of nearest_landmark."""
         torch = self.torch
         from repro_torch.core.graph import squared_norms
         from repro_torch.core.search import auto_hash_slots
-        from repro_torch.kernels import ref
+        from repro_torch.kernels import distance, ref
         from repro_torch.kernels.precision import encode_dataset
 
         H = auto_hash_slots(64, 60)
@@ -359,8 +363,20 @@ class Smoke:
                     self.check_expand(x, q, sq, "l2", integer, B=B, C=60, e=64, H=H, P=8,
                                       steps=2, timed=timed, enc=enc, precision=precision,
                                       prefix="serve_")
-        print(f"phase 2c: serving shapes (B in 1, 37, 64; gather C=44; expand C=60 e=64 H={H}): "
-              "kernels agree with plain", flush=True)
+            # the recall audit's brute tile (the reservoir's 96 queries
+            # against 8192 rows, norms not cached) and nearest_landmark's
+            # chunk (4096 rows against 4000 landmarks, uncached)
+            g = self.gen(60)
+            rows = torch.randperm(n, generator=g, device=self.dev)
+            for m, nt, what in ((96, 8192, "audit tile"), (4096, 4000, "nearest_landmark")):
+                q, xt = x[rows[:m]], x[rows[m:m + nt]]
+                self.compare("pairwise_distance", distance.pairwise_distance(q, xt, "l2"),
+                             ref.pairwise_distance(q, xt, "l2"), exact=integer,
+                             what=f"{what} m={m} n={nt} {'int' if integer else 'clustered'}")
+                if not integer:
+                    self.time_pairwise(q, xt, None, main=False)
+        print(f"phase 2c: serving shapes (B in 1, 37, 64; gather C=44; expand C=60 e=64 H={H}; "
+              "pairwise 96x8192 and 4096x4000 uncached): kernels agree with plain", flush=True)
 
     def time_gather(self, x, sets, precision, prefix=""):
         """Time the gather over the query and id ``sets`` of one shape
@@ -392,7 +408,10 @@ class Smoke:
         # own distance, which takes square roots and reduces its own norms
         mm_ms = self.profile.time_ms([lambda: torch.mm(q, x.T)] * 12)
         cdist_ms = self.profile.time_ms([lambda: torch.cdist(q, x)] * 12)
-        b, how = self.profile.bound_ms(4 * (m * d + n * d + n + m * n), 2 * m * n * d)
+        # each input read once (the x norms only where cached), the output
+        # written once
+        nbytes = 4 * (m * d + n * d + (0 if xn is None else n) + m * n)
+        b, how = self.profile.bound_ms(nbytes, 2 * m * n * d)
         print(f"pairwise_distance m={m} n={n} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"torch.mm {mm_ms:.6f} ms, torch.cdist {cdist_ms:.6f} ms, bound {b:.6f} ms ({how})",
               flush=True)

@@ -74,24 +74,25 @@ def coarse_to_numpy(c: CoarseLevel) -> dict:
 # so ``dispatch``/``use_pallas`` carry no meaning and are dropped).
 _FIXED = {"data_bf16": False, "intra_wave": True}
 _DROPPED = ("dispatch", "use_pallas")
+_FIELDS = frozenset(f.name for f in dataclasses.fields(BuildConfig))
+# every BuildConfig field that either package knows
+CONFIG_KEYS = _FIELDS | set(_FIXED) | set(_DROPPED)
 
 
-def build_config_from_dict(d: dict, *, drop_unknown: bool = False) -> BuildConfig:
+def build_config_from_dict(d: dict) -> BuildConfig:
     """A reference ``BuildConfig.__dict__`` -> the port's ``BuildConfig``.
 
     ``precision``, ``rerank_factor`` and the coarse-seeding fields are
     carried.  Raises for settings the port does not run (bf16 storage, no
     intra-wave tile) rather than dropping them silently, and for fields
-    neither package knows unless ``drop_unknown`` (a snapshot written by a
-    later version, whose new fields take their defaults here)."""
+    neither package knows (``CONFIG_KEYS``)."""
     for name, want in _FIXED.items():
         if name in d and d[name] != want:
             raise ValueError(f"the port runs {name}={want!r} only, got {d[name]!r}")
-    fields = {f.name for f in dataclasses.fields(BuildConfig)}
-    unknown = set(d) - fields - set(_FIXED) - set(_DROPPED)
-    if unknown and not drop_unknown:
+    unknown = set(d) - CONFIG_KEYS
+    if unknown:
         raise ValueError(f"unknown BuildConfig fields: {sorted(unknown)}")
-    return BuildConfig(**{key: v for key, v in d.items() if key in fields})
+    return BuildConfig(**{key: v for key, v in d.items() if key in _FIELDS})
 
 
 def encoded_from_numpy(fields: dict, device="cpu") -> EncodedData:

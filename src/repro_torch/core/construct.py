@@ -256,9 +256,9 @@ def wave_core(
 
     With a ``coarse`` level (a ``core.hierarchy.CoarseLevel``) the searches
     seed coarsely from ``coarse_seeds`` and each committed row joins its
-    winning landmark's cell; the return is then (graph, stats, coarse).
-    Without one it is (graph, stats), and ``seed_mode="coarse"`` seeds
-    randomly for this wave."""
+    winning landmark's cell.  Without one, ``seed_mode="coarse"`` seeds
+    randomly for this wave.  Returns (graph, stats, coarse), coarse None
+    when none was given."""
     W = cfg.wave
     n = x.shape[0]
     n_real = min(W, n - pos)
@@ -282,7 +282,7 @@ def wave_core(
         n_inserted_edges=stats.n_inserted_edges + edges,
     )
     if coarse is None:
-        return g2, stats2
+        return g2, stats2, None
     from repro_torch.core import hierarchy  # late: hierarchy imports construct
 
     rows = torch.where(lanes < n_real, pos + lanes, -1).to(torch.int32)
@@ -377,12 +377,8 @@ def build(
                 seeds, coarse_seeds = _wave_seeds(
                     seed_fn, generator, stats.n_waves, pos, W, g.n_valid, cfg, coarse, dev
                 )
-                out = wave_core(g, x, pos, seeds, stats, cfg, enc,
-                                coarse=coarse, coarse_seeds=coarse_seeds)
-                if coarse is None:
-                    g, stats = out
-                else:
-                    g, stats, coarse = out
+                g, stats, coarse = wave_core(g, x, pos, seeds, stats, cfg, enc,
+                                             coarse=coarse, coarse_seeds=coarse_seeds)
                 pos += min(W, n - pos)
             sp.sync(g.nbr_ids)
         if wave_callback is not None and stats.n_waves % callback_stride == 0:

@@ -251,7 +251,10 @@ def load(
     if rev_missing or (validate_reverse and not _reverse_ok(g)):
         g = graph_lib.rebuild_reverse(g)
 
-    cfg = convert.build_config_from_dict(manifest.get("build_config", {}), drop_unknown=True)
+    # a later writer's fields, unknown to both packages, take their defaults
+    cfg = convert.build_config_from_dict(
+        {key: v for key, v in manifest.get("build_config", {}).items() if key in convert.CONFIG_KEYS}
+    )
     out = [g, items, cfg, manifest]
     if with_coarse:
         coarse = None

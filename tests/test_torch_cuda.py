@@ -149,8 +149,10 @@ def test_expand_kernel_shapes_bit_exact(card, precision, H, C, e, P, d):
 
 
 # (m, n, d): ragged everywhere; the main shape; n one column past a multiple
-# of the 128-wide tile with d % 8 != 0; d % 4 != 0 (scalar loads and stores)
-PAIRWISE_SHAPES = [(1000, 777, 100), (4096, 4096, 128), (129, 385, 36), (130, 257, 70)]
+# of the 128-wide tile with d % 8 != 0; d % 4 != 0 (scalar loads and stores);
+# the serving recall audit's brute tile; nearest_landmark's chunk
+PAIRWISE_SHAPES = [(1000, 777, 100), (4096, 4096, 128), (129, 385, 36), (130, 257, 70),
+                   (96, 8192, 128), (4096, 4000, 128)]
 
 
 @pytest.mark.parametrize("metric", METRICS + ["l2-cached"])
