@@ -25,13 +25,18 @@ needs one NVIDIA card and runs, in order:
    device memory and not from the L2 the call before it filled; the replay
    of one set (warm) is printed beside it, and the same timer reads an
    empty kernel launched with the gather's grid, the floor of any gather's
-   time.  Then the serving searches' shapes: the gather at B in {1, 37, 64}
-   with C=44 coarse seeds (T + T·M + p = 4 + 32 + 8) and ``fused_expand`` at
-   the same B with C=60, e=64, H=2048, each storage type against its plain
-   version (exact on integer rows), B=64 timed, and ``pairwise_distance``,
-   norms uncached, at the recall audit's tile (96 queries against 8,192
-   rows) and ``nearest_landmark``'s chunk (4,096 rows against 4,000
-   landmarks), exact on integer rows, to the tolerance on clustered rows;
+   time.  Then the serving searches' shapes: the gather at B in {1, 4, 37,
+   64} (4: a router request) with C=44 coarse seeds (T + T·M + p = 4 + 32 +
+   8) and ``fused_expand`` at the same B with C=60, e=64, H=2048, each
+   storage type against its plain version (exact on integer rows), B=64
+   timed, and ``pairwise_distance``, norms uncached, at the recall audit's
+   tile (96 queries against 8,192 rows), ``nearest_landmark``'s chunk (4,096
+   rows against 4,000 landmarks) and the router's brute tile (4 queries
+   against 8,192 rows), exact on integer rows, to the tolerance on clustered
+   rows, each timed.
+   Last, the merge's second-hop gather (``ops.merge_proposals``): one row
+   chunk of 16,384 queries x C = HOP_TOP * k = 400 ids over the 10^6 rows,
+   exact on integer rows, to the tolerance on clustered rows, timed;
 3. an n=20,000, d=32 integer-valued build with the kernels and the same
    build with the plain versions, from the same injected seeds, at fp32,
    int8 and bf16: every graph array and the counters must be identical.  On
@@ -39,7 +44,11 @@ needs one NVIDIA card and runs, in order:
    plain versions: remove 2,000 rows, compact, insert 1,024 rows from
    injected seeds, and a ``seed_mode="coarse"`` build from injected
    landmarks and seeds; every graph array, the id map, the coarse level and
-   ``n_comps`` must be identical;
+   ``n_comps`` must be identical.  Then the divide-and-conquer script twice,
+   kernels and plain: ``build_parallel`` (3 blocks, one refine round), a
+   3-shard router's add, remove, compact, graph and brute retrieval and
+   ``merge_shards``, every draw injected; every array, table and answer
+   identical;
 4. the online LGD build at full width (the knn-lgd config: k=20, l2, W=4096,
    beam 40, 8 seeds, d=128) over n=1,000,000 clustered rows, then graph
    recall@10 over 10,000 strided rows against ``brute_force_knn`` run
@@ -76,10 +85,30 @@ needs one NVIDIA card and runs, in order:
    (kernels >= plain - 0.01, beside random seeding), a ``JsonlTracker``
    trace holding the loop's and the index's spans, and one wave served
    with the tracker on bit-identical to the wave with it off;
-7. a ``kernels`` JSON line: each kernel's launches in the build of its own
+7. the sharded router and the divide-and-conquer build at full width:
+   (a) ``build_parallel`` of phase 4's rows in 4 blocks at the knn-lgd
+   config, one refine round, cross searches in chunks of 4,096: seconds by
+   span (sub-builds, each merge level, folds, refine) and the device time of
+   the refine's whole-capacity ``merge_candidates`` calls, comps, peak
+   memory, recall@10 over phase 4's rows, which must reach the sequential
+   recall less 0.02 (the reference's tolerance), or, where it misses, the
+   same build through the plain versions less 0.01; invariants and the
+   canonical λ.  (b) A 4-shard ``ShardedIndex`` of the same rows under
+   phase 6's traffic in requests of 4 queries through ``retrieve`` (churn:
+   4,096 random live ids removed, 4,096 fresh rows added in batches that
+   fit the least-filled shard, ``compact()``): p50/p99 per request, QPS,
+   comps/query, the ``router/shard<s>`` spans, recall@10 against brute
+   force; no removed id served, capacity 10^6, the id tables following
+   every compaction, the brute router equal to ``retrieve_brute`` over one
+   index of the same live rows, a bit-exact snapshot round trip.  (c)
+   ``merge_shards`` of the churned router: every sampled live id resolves
+   to its own row, no removed id served, one round served;
+8. a ``kernels`` JSON line: each kernel's launches in the build of its own
    precision (phase 4 for fp32, phase 5 for bf16 and int8) and, for the
-   three fp32 kernels, in the serving run (``serve_launches``), its error
-   against the plain version, times and bound.
+   three fp32 kernels, in the serving run (``serve_launches``) and in each
+   phase 7 path (``parallel_launches``, ``router_launches``,
+   ``merge_shards_launches``), its error against the plain version, times
+   and bound.
 
 It exits non-zero, printing no result, when any phase fails, when no CUDA
 device is present, or when it is run without the rest of the repository.
@@ -116,6 +145,15 @@ SERVE_LANDMARKS = 4000
 # of fp32 sums and ADC tables may move a near tie; and the share of the
 # card's PQ codes that the CPU's encoder gives too (ties only)
 PQ_PRUNE_OVERLAP, PQ_CPU_AGREE, PQ_CODES_AGREE = 0.88, 0.99, 0.999
+
+# phase 7: blocks of the parallel build and shards of the router, the merge
+# cross searches' batch (the wave's width: the reference's default 512 would
+# cost 8x the host iterations), queries per router request (a user's
+# interests, as the serving launcher sends them), the router's draws, and
+# the live ids looked up after merge_shards
+PAR_SHARDS, ROUTER_SHARDS, MERGE_CHUNK, REQUEST = 4, 4, 4096, 4
+ROUTER_SEED, LOOKUP_SEED, LOOKUPS = 43, 47, 8192
+FP32_KERNELS = ("gather_distance", "fused_expand", "pairwise_distance")
 
 # the kernels, the CUDA sources that replace the TPU kernels, and the
 # pallas_call sites with the storage type each form takes
@@ -178,7 +216,8 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         for phase in (smoke.build_kernels, smoke.phase_kernels, smoke.phase_build_parity,
-                      smoke.phase_full, smoke.phase_compressed, smoke.phase_serving):
+                      smoke.phase_full, smoke.phase_compressed, smoke.phase_serving,
+                      smoke.phase_parallel, smoke.phase_router, smoke.phase_merge_shards):
             phase()
             print(f"  [{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except PhaseError as exc:
@@ -201,6 +240,7 @@ class Smoke:
         self.rec = {name: {"max_abs_err": 0.0} for name in KERNELS}
         self.launches = {}  # kernel -> launches in the build of its precision
         self.serve_launches = {}  # kernel -> launches in the serving run
+        self.path_launches = {}  # phase 7 path -> its launch counts
         from repro_torch.kernels import _cuda, ops
         from repro_torch.launch import bench_gather, profile_build
 
@@ -305,8 +345,8 @@ class Smoke:
             self.compare("pairwise_distance", got, ref.pairwise_distance(xq, xq, "l2", x_sq_norms=sqq),
                          exact=integer, what=f"intra-wave tile {'int' if integer else 'clustered'}")
             if not integer:
-                self.time_pairwise(xq, xq, sqq, main=True)
-                self.time_pairwise(x[::100][:10_000].contiguous(), x[:8192], sq[:8192], main=False)
+                self.time_pairwise(xq, xq, sqq, prefix="")
+                self.time_pairwise(x[::100][:10_000].contiguous(), x[:8192], sq[:8192])
         self.xf = xf
         print("phase 2b: main-path shapes: kernels agree with plain", flush=True)
 
@@ -328,6 +368,39 @@ class Smoke:
             del x, enc
         print("phase 2b: gather at a large candidate count: kernels agree with plain", flush=True)
         self.serving_shapes(xi)
+        self.merge_shapes(xi)
+
+    def merge_shapes(self, xi):
+        """The second-hop gather of ``ops.merge_proposals``: one row chunk
+        (``MERGE_PROPOSAL_ROWS`` queries) x C = HOP_TOP * k = 400 ids over
+        the 10^6 rows, d=128, 5% of the ids -1; timed on clustered rows over
+        cold sets."""
+        torch = self.torch
+        from repro_torch.configs import knn_lgd
+        from repro_torch.core.graph import squared_norms
+        from repro_torch.core.merge import HOP_TOP
+        from repro_torch.kernels import ref
+
+        B, C = self.ops.MERGE_PROPOSAL_ROWS, HOP_TOP * knn_lgd.full_config().k
+        for x, integer in ((self.xf, False), (xi, True)):
+            n = x.shape[0]
+            sq = squared_norms(x)
+            sets = []
+            for k in range(1 if integer else 10):
+                g = self.gen(70 + k)
+                q = x[torch.randint(0, n, (B,), generator=g, device=self.dev)]
+                idx = torch.randint(0, n, (B, C), generator=g, device=self.dev).int()
+                drop = torch.rand((B, C), generator=g, device=self.dev) < 0.05
+                sets.append((q, torch.where(drop, -1, idx)))
+            q, idx = sets[0]
+            self.compare("gather_distance", self.ops.gather_distance(q, x, idx, "l2", sq_norms=sq),
+                         ref.gather_distance(q, x, idx, "l2", sq_norms=sq), exact=integer,
+                         what=f"merge_proposals B={B} C={C} {'int' if integer else 'clustered'}")
+            if not integer:
+                self.time_gather(x, sets, "fp32", prefix="merge_")
+            del sets
+        print(f"phase 2d: the merge's second-hop gather (B={B} C={C} d=128): kernel agrees "
+              "with plain", flush=True)
 
     def serving_shapes(self, xi):
         """The serving searches' shapes: the coarse seed gather (C=44) and
@@ -343,7 +416,7 @@ class Smoke:
         for x, integer in ((self.xf, False), (xi, True)):
             sq = squared_norms(x)
             n = x.shape[0]
-            for B in (1, 37, 64):
+            for B in (1, 4, 37, 64):
                 g = self.gen(50 + B)
                 q = x[torch.randint(0, n, (B,), generator=g, device=self.dev)]
                 idx = torch.randint(-1, n, (B, 44), generator=g, device=self.dev).int()
@@ -364,19 +437,23 @@ class Smoke:
                                       steps=2, timed=timed, enc=enc, precision=precision,
                                       prefix="serve_")
             # the recall audit's brute tile (the reservoir's 96 queries
-            # against 8192 rows, norms not cached) and nearest_landmark's
-            # chunk (4096 rows against 4000 landmarks, uncached)
+            # against 8192 rows, norms not cached), nearest_landmark's chunk
+            # (4096 rows against 4000 landmarks, uncached) and the router's
+            # brute tile (one request's 4 queries against 8192 rows)
             g = self.gen(60)
             rows = torch.randperm(n, generator=g, device=self.dev)
-            for m, nt, what in ((96, 8192, "audit tile"), (4096, 4000, "nearest_landmark")):
+            for m, nt, what, prefix in ((96, 8192, "audit tile", None),
+                                        (4096, 4000, "nearest_landmark", None),
+                                        (REQUEST, 8192, "router brute tile", "router_")):
                 q, xt = x[rows[:m]], x[rows[m:m + nt]]
                 self.compare("pairwise_distance", distance.pairwise_distance(q, xt, "l2"),
                              ref.pairwise_distance(q, xt, "l2"), exact=integer,
                              what=f"{what} m={m} n={nt} {'int' if integer else 'clustered'}")
                 if not integer:
-                    self.time_pairwise(q, xt, None, main=False)
-        print(f"phase 2c: serving shapes (B in 1, 37, 64; gather C=44; expand C=60 e=64 H={H}; "
-              "pairwise 96x8192 and 4096x4000 uncached): kernels agree with plain", flush=True)
+                    self.time_pairwise(q, xt, None, prefix=prefix)
+        print(f"phase 2c: serving shapes (B in 1, 4, 37, 64; gather C=44; expand C=60 e=64 H={H}; "
+              f"pairwise 96x8192, 4096x4000 and {REQUEST}x8192 uncached): kernels agree with plain",
+              flush=True)
 
     def time_gather(self, x, sets, precision, prefix=""):
         """Time the gather over the query and id ``sets`` of one shape
@@ -396,7 +473,10 @@ class Smoke:
               f"ms, index_select {m['index_select_ms']:.6f} ms, bound {m['bound_ms']:.6f} ms "
               f"({m['bound_by']})", flush=True)
 
-    def time_pairwise(self, q, x, xn, *, main):
+    def time_pairwise(self, q, x, xn, *, prefix=None):
+        """Time the pairwise kernel, its plain version, ``torch.mm`` and
+        ``torch.cdist`` at one shape; with a ``prefix``, into the record's
+        keys under it."""
         torch = self.torch
         from repro_torch.kernels import distance, ref
 
@@ -415,10 +495,11 @@ class Smoke:
         print(f"pairwise_distance m={m} n={n} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"torch.mm {mm_ms:.6f} ms, torch.cdist {cdist_ms:.6f} ms, bound {b:.6f} ms ({how})",
               flush=True)
-        if main:
-            self.rec["pairwise_distance"].update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how,
-                                                 library_ms=mm_ms, cdist_ms=cdist_ms,
-                                                 shape=f"m=n={m} d={d} cached l2")
+        if prefix is not None:
+            shape = f"m={m} n={n} d={d} {'cached' if xn is not None else 'uncached'} l2"
+            rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how, library_ms=mm_ms,
+                       cdist_ms=cdist_ms, shape=shape)
+            self.rec["pairwise_distance"].update({prefix + k: v for k, v in rec.items()})
 
     def expand_state(self, x, q, sq, metric, B, C, e, H, P, warm, enc, precision):
         """A mid-search state: ``warm`` plain expansion steps from random
@@ -573,6 +654,7 @@ class Smoke:
             if precision == "fp32":
                 g32, cfg32 = g_k, cfg
         self.churn_parity(g32, x, cfg32)
+        self.divide_parity(x, cfg32)
 
     def churn_script(self, g, x, cfg):
         """Remove 2,000 rows, compact, insert 1,024 rows, then a coarse
@@ -640,6 +722,71 @@ class Smoke:
               f"insert 1,024, coarse build with {a['coarse.landmark_rows'].shape[0]} landmarks): "
               f"graphs, id map, coarse level and n_comps ({a['n_comps.insert']}, "
               f"{a['n_comps.coarse']}) identical, kernels vs plain (kernels {t_k:.3f} s, "
+              f"plain {t_p:.3f} s; launches {json.dumps(counts)})", flush=True)
+
+    def divide_script(self, x, cfg):
+        """build_parallel (3 blocks, one refine round), then a 3-shard
+        router: add 1,024 rows, remove 2,000 ids, compact, graph and brute
+        retrieval, merge_shards; every draw injected.  Returns each result
+        as numpy arrays and ints."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch import convert
+        from repro_torch.core import construct
+        from repro_torch.core import draws as draws_lib
+        from repro_torch.core.draws import TorchDraws
+        from repro_torch.index import ShardedIndex
+
+        def cpu(seed):
+            return torch.Generator().manual_seed(seed)
+
+        n, d = x.shape
+        out = {}
+        g, st = construct.build_parallel(x, cfg, TorchDraws(7000), shards=3, refine_rounds=1,
+                                         search_chunk=1024, device=self.dev)
+        out.update({f"parallel.{k}": v for k, v in convert.graph_to_numpy(g).items()})
+        out["parallel.n_comps"] = int(st.n_comps)
+        r = ShardedIndex.build(x, 3, cfg, draws=TorchDraws(7001), device=self.dev)
+        new = torch.randint(0, 16, (1024, d), generator=cpu(7002)).float().to(self.dev)
+        r.add(new, seed_fn=draws_lib.wave_seed_fn(TorchDraws(7003), cfg.n_seeds, device=self.dev))
+        r.remove(torch.randperm(n + 1024, generator=cpu(7004))[:2000].numpy())
+        r.compact()
+        q = torch.randint(0, 16, (16, d), generator=cpu(7005)).float().to(self.dev)
+        out["router.ids"], out["router.scores"] = r.retrieve(q, 10, beam=64, draws=TorchDraws(7006))
+        out["router.brute_ids"], out["router.brute_scores"] = r.retrieve(q, 10, brute=True)
+        for s, sh in enumerate(r.shards):
+            out.update({f"router{s}.{k}": v for k, v in convert.graph_to_numpy(sh.graph).items()})
+            out[f"router{s}.gids"] = r.gids[s]
+        r.merge_shards(refine_rounds=1, draws=TorchDraws(7007))
+        out.update({f"merged.{k}": v for k, v in convert.graph_to_numpy(r.shards[0].graph).items()})
+        out["merged.gids"], out["merged.items"] = r.gids[0], r.shards[0].items.cpu().numpy()
+        out["merged.ids"], _ = r.retrieve(q, 10, beam=64, draws=TorchDraws(7008))
+        check(len(np.unique(r.gids[0])) == n + 1024 - 2000, "merge_shards lost a live id")
+        return out
+
+    def divide_parity(self, x, cfg):
+        """The divide-and-conquer script with the kernels and the plain
+        versions: every array and count identical."""
+        self.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        a = self.divide_script(x, cfg)
+        t_k = time.perf_counter() - t0
+        counts = self.ops.launch_counts()
+        for kernel in FP32_KERNELS:
+            check(counts[kernel] > 0, f"divide-and-conquer script launched no {kernel}")
+        t0 = time.perf_counter()
+        with self.plain_versions():
+            b = self.divide_script(x, cfg)
+        t_p = time.perf_counter() - t0
+        check(self.ops.launch_counts() == counts, "plain divide-and-conquer script launched a kernel")
+        for name in a:
+            check(bool((a[name] == b[name]).all()) if hasattr(a[name], "shape")
+                  else a[name] == b[name], f"divide-and-conquer script: {name} differs, kernels vs plain")
+        print(f"phase 3: divide-and-conquer on the n={x.shape[0]} integer rows (build_parallel of "
+              f"3 blocks with a refine round, n_comps {a['parallel.n_comps']}; a 3-shard router: "
+              "add 1,024, remove 2,000, compact, graph and brute retrieval, merge_shards): every "
+              f"graph array, id table and answer identical, kernels vs plain (kernels {t_k:.3f} s, "
               f"plain {t_p:.3f} s; launches {json.dumps(counts)})", flush=True)
 
     # ---------------------------------------------------------------- phase 4
@@ -723,6 +870,7 @@ class Smoke:
               f"{floor:.4f}", flush=True)
         check(recall >= floor, f"graph recall@10 {recall:.4f} < floor {floor:.4f}")
         self.g32, self.rows, self.truth, self.recall32 = g, rows, truth, recall
+        self.t_seq = t_build
 
     # ---------------------------------------------------------------- phase 5
     def phase_compressed(self):
@@ -915,6 +1063,7 @@ class Smoke:
                   f"share {r['hash_saturation_ratio']:.4f}, recall@10 fresh {r['recall_at_10']:.4f} "
                   f"served {r['recall_at_10_served']:.4f} over {r['n_audited']} queries "
                   f"({t:.3f} s with {events} churn events of {CHURN})", flush=True)
+        self.serve_rep = rep
         check(rep["recall_at_10"] >= rep_p["recall_at_10"] - 0.01,
               f"serving recall@10 {rep['recall_at_10']:.4f} < plain {rep_p['recall_at_10']:.4f} - 0.01")
         for idx, ws, what in ((index, waves, "kernels"), (index_p, waves_p, "plain")):
@@ -1054,6 +1203,381 @@ class Smoke:
               f" with the reverse lists rebuilt canonically", flush=True)
         check(r_k >= r_p - 0.01, f"coarse serving recall@10 {r_k:.4f} < plain {r_p:.4f} - 0.01")
 
+    # ---------------------------------------------------------------- phase 7
+    def path_counts(self, path, what):
+        """Read the launch counts of a phase 7 path (zeroed just before it)
+        and require each fp32 kernel to have launched."""
+        counts = self.ops.launch_counts()
+        print(f"launches on {what}: {json.dumps(counts)}", flush=True)
+        for name in FP32_KERNELS:
+            check(counts[name] > 0, f"kernel {name} was not launched on {what}")
+        self.path_launches[path] = counts
+
+    def parallel_build(self):
+        """build_parallel over phase 4's rows at the knn-lgd config: the
+        graph, stats, seconds, host seconds by span, and the device seconds
+        between CUDA events around each ``merge_candidates`` call of the
+        refine (no sync added) with the count of those calls."""
+        torch = self.torch
+        from repro_torch.configs import knn_lgd
+        from repro_torch.core import construct, merge
+        from repro_torch.core.draws import TorchDraws
+        from repro_torch.launch import build_graph
+        from repro_torch.obs import InMemoryTracker
+
+        trk = InMemoryTracker()
+        events = []
+        inner = merge.merge_candidates
+
+        def timed(*args, **kw):
+            if trk._stack[-1:] != ["parallel/refine"]:
+                return inner(*args, **kw)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = inner(*args, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out
+
+        merge.merge_candidates = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, st = construct.build_parallel(
+                self.xf, knn_lgd.full_config(), TorchDraws(build_graph.BUILD_SEED),
+                shards=PAR_SHARDS, refine_rounds=1, search_chunk=MERGE_CHUNK, tracker=trk,
+                device=self.dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        finally:
+            merge.merge_candidates = inner
+        spans = {}
+        for e in trk.span_events:
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur_s"]
+        sort_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        return g, st, t, spans, sort_s, len(events)
+
+    def phase_parallel(self):
+        """7a: the divide-and-conquer build of phase 4's rows."""
+        torch = self.torch
+        from repro_torch.core import brute, construct, nndescent
+
+        x, n = self.xf, self.xf.shape[0]
+        torch.cuda.reset_peak_memory_stats()
+        self.ops.reset_launch_counts()
+        g, st, t, spans, sort_s, n_sorts = self.parallel_build()
+        peak = torch.cuda.max_memory_allocated()
+        self.path_counts("parallel", "the parallel build")
+        recall = brute.recall_at_k(g.nbr_ids[self.rows], self.truth, 10)
+        print(f"phase 7a: build_parallel n={n} d={x.shape[1]} knn-lgd, {PAR_SHARDS} blocks, one refine "
+              f"round, cross-search chunk {MERGE_CHUNK}: {t:.3f} s ({n / t:.1f} rows/s; phase 4's "
+              f"sequential build {self.t_seq:.3f} s), {st.n_waves} waves, n_comps "
+              f"{int(st.n_comps)}, scanning rate {construct.scanning_rate(st, n):.6f}, peak memory "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+        print("phase 7a: host seconds by span: " + ", ".join(
+            f"{name} {sec:.3f}" for name, sec in spans.items()) + f"; the refine's {n_sorts} "
+            f"merge_candidates calls {sort_s:.3f} s of device time between events "
+            f"({sort_s / spans['parallel/refine']:.4f} of the refine, {sort_s / t:.4f} of the build)",
+            flush=True)
+        print(f"phase 7a: recall@10 over {self.rows.numel()} strided rows = {recall:.4f} "
+              f"(phase 4's sequential build {self.recall32:.4f})", flush=True)
+        self.check_graph(g, "parallel build")
+        lam, _ = nndescent.recompute_lambda(g.nbr_ids, g.nbr_dist, x, "l2")
+        check(torch.equal(lam, g.nbr_lam), "parallel build: nbr_lam is not the canonical λ of "
+              "the final lists")
+        if recall < self.recall32 - 0.02:
+            # the second arm: the same build through the plain versions
+            with self.plain_versions():
+                g_p, _, t_p, _, _, _ = self.parallel_build()
+            recall_p = brute.recall_at_k(g_p.nbr_ids[self.rows], self.truth, 10)
+            print(f"phase 7a: plain versions on the card: {t_p:.3f} s, recall@10 {recall_p:.4f}; "
+                  f"floor {recall_p - 0.01:.4f}", flush=True)
+            check(recall >= recall_p - 0.01, f"parallel recall@10 {recall:.4f} < sequential "
+                  f"{self.recall32:.4f} - 0.02 and < plain {recall_p:.4f} - 0.01")
+
+    def check_tables(self, router, live, source, what):
+        """The id tables against the live set: each shard full, every live
+        id held once, and sampled ids naming rows that hold their vectors."""
+        import numpy as np
+
+        torch = self.torch
+        held = []
+        for s, sh in enumerate(router.shards):
+            table = router.gids[s]
+            nv = sh.graph.n_valid
+            check(len(table) == sh.capacity and (table[nv:] == -1).all(),
+                  f"{what}: shard {s} table does not match its capacity")
+            check(bool(sh.graph.alive[:nv].all()) and (table[:nv] >= 0).all(),
+                  f"{what}: shard {s} has a dead or untabled row after compaction")
+            held.append(np.stack([table[:nv], np.full(nv, s), np.arange(nv)], 1))
+        held = np.concatenate(held)
+        check(np.array_equal(np.sort(held[:, 0]), np.nonzero(live)[0]),
+              f"{what}: the tables do not hold exactly the live ids")
+        pick = held[np.random.RandomState(len(held)).choice(len(held), 1024, replace=False)]
+        for gid, s, row in pick:
+            check(torch.equal(router.shards[s].items[row], source(gid)),
+                  f"{what}: global id {gid} names a row of shard {s} with another vector")
+
+    def phase_router(self):
+        """7b: phase 4's rows in a 4-shard router under phase 6's traffic."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import knn_lgd
+        from repro_torch.core import draws as draws_lib
+        from repro_torch.core.draws import TorchDraws
+        from repro_torch.index import ShardedIndex
+        from repro_torch.launch import build_graph
+        from repro_torch.obs import InMemoryTracker
+
+        x, n = self.xf, self.xf.shape[0]
+        cfg = knn_lgd.full_config()
+        queries, fresh = self.serve_queries, self.serve_fresh
+        self.ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        router = ShardedIndex.build(x, ROUTER_SHARDS, cfg, draws=TorchDraws(build_graph.BUILD_SEED),
+                                    device=self.dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        trk = InMemoryTracker()
+        router.tracker = trk
+        for sh in router.shards:
+            sh.tracker = trk
+        live = np.zeros(n + fresh.shape[0], bool)
+        live[:n] = True
+        removed = np.zeros_like(live)
+        victims_rng = np.random.RandomState(VICTIM_SEED)
+
+        def source(gid):
+            return x[gid] if gid < n else fresh[gid - n]
+
+        def churn(e):
+            victims = victims_rng.choice(np.nonzero(live)[0], CHURN, replace=False)
+            check(router.remove(victims) == CHURN, "router: a removal missed a live id")
+            live[victims], removed[victims] = False, True
+            added = 0
+            while added < CHURN:  # batches that fit the least-filled shard's free rows
+                s = int(np.argmin([sh.n_items for sh in router.shards]))
+                m = min(router.shards[s].free_slots, CHURN - added)
+                check(m > 0, "router: no free rows left for an add")
+                gids = router.add(fresh[e * CHURN + added:e * CHURN + added + m],
+                                  seed_fn=draws_lib.wave_seed_fn(
+                                      TorchDraws(ROUTER_SEED).fold_in(e).fold_in(added),
+                                      cfg.n_seeds, device=self.dev))
+                check(np.array_equal(gids, n + e * CHURN + added + np.arange(m)),
+                      "router: add handed out unexpected global ids")
+                live[gids] = True
+                added += m
+            router.compact()
+            self.check_tables(router, live, source, f"router churn event {e}")
+
+        lat, recall, served_dead, comps = [], [], 0, 0
+        t_churn = 0.0
+
+        def round_(r, measured):
+            nonlocal served_dead, comps, t_churn
+            if r % CHURN_EVERY == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                churn(r // CHURN_EVERY)
+                torch.cuda.synchronize()
+                t_churn += time.perf_counter() - t0
+            for j in range(SERVE_BURST // REQUEST):
+                q = queries[r * SERVE_BURST + j * REQUEST:r * SERVE_BURST + (j + 1) * REQUEST]
+                t0 = time.perf_counter()
+                ids, _, stats = router.retrieve(q, 10, beam=64, with_stats=True,
+                                                draws=TorchDraws(LOOP_SEED).fold_in(r).fold_in(j))
+                dt = time.perf_counter() - t0  # the answer is a host array: synced
+                served_dead += int(removed[ids[ids >= 0]].sum())
+                if measured:
+                    lat.append(dt)
+                    comps += stats.total_comps
+                    truth, _ = router.retrieve(q, 10, brute=True)
+                    recall.append(len(set(ids.tolist()) & set(truth.tolist())) / 10)
+
+        round_(0, False)  # the warm-up round, outside the window
+        trk.events.clear()
+        for r in range(1, SERVE_ROUNDS + 1):
+            round_(r, True)
+        counts_path = "the router (build, churn, graph and brute retrieval)"
+        self.path_counts("router", counts_path)
+        lat_ms = np.asarray(lat) * 1e3
+        served = len(lat) * REQUEST
+        spans = {}
+        for e in trk.span_events:
+            spans.setdefault(e["name"], []).append(e["dur_s"])
+        print(f"phase 7b: router of {ROUTER_SHARDS} shards over n={n}: build {t_build:.3f} s; "
+              f"{len(lat)} requests of {REQUEST} queries ({served} queries) in {SERVE_ROUNDS} "
+              f"rounds of {SERVE_BURST}: p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
+              f"{np.percentile(lat_ms, 99):.3f} ms per request, {served / lat_ms.sum() * 1e3:.1f} "
+              f"QPS (queries over the summed request latencies), comps/query "
+              f"{comps / served:.1f} (all shards), recall@10 {np.mean(recall):.4f} against brute "
+              f"force over the live catalog; {SERVE_ROUNDS // CHURN_EVERY + 1} churn events of "
+              f"{CHURN} in {t_churn:.3f} s (phase 6's single index: p50 "
+              f"{self.serve_rep['p50_latency_ms']:.3f} ms, p99 "
+              f"{self.serve_rep['p99_latency_ms']:.3f} ms, {self.serve_rep['qps']:.1f} QPS)",
+              flush=True)
+        print("phase 7b: host seconds by span (count, total, mean ms): " + ", ".join(
+            f"{name} ({len(d)}, {sum(d):.3f}, {1e3 * sum(d) / len(d):.3f})"
+            for name, d in sorted(spans.items())), flush=True)
+        check(served_dead == 0, f"router served {served_dead} removed global ids")
+        cap = sum(sh.capacity for sh in router.shards)
+        check(cap == n, f"router capacity grew to {cap}")
+        self.router_brute_check(router, queries, cfg)
+        self.router_snapshot(router, queries)
+        self.router, self.live, self.removed, self.source = router, live, removed, source
+        self.router_recall = float(np.mean(recall))
+
+    def router_brute_check(self, router, queries, cfg):
+        """retrieve(brute=True) on 4 requests against retrieve_brute over
+        one index of the same live rows."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.core import graph as graph_lib
+        from repro_torch.index import OnlineIndex
+        from repro_torch.serve import retrieval
+
+        items = torch.cat([sh.items[:sh.graph.n_valid] for sh in router.shards])
+        table = np.concatenate([router.gids[s][:sh.graph.n_valid]
+                                for s, sh in enumerate(router.shards)])
+        g = graph_lib.empty_graph(items.shape[0], cfg.k, device=self.dev)
+        g = g._replace(alive=torch.ones_like(g.alive), n_valid=items.shape[0])
+        single = OnlineIndex(graph=g, items=items, build_cfg=cfg)
+        mismatch = worst = 0
+        for j in range(4):
+            q = queries[j * REQUEST:(j + 1) * REQUEST]
+            ids, scores = router.retrieve(q, 10, brute=True)
+            sids, sscores = retrieval.retrieve_brute(single, q, 10)
+            sids, sscores = table[sids.cpu().numpy()], sscores.cpu().numpy()
+            check(np.allclose(scores, sscores, rtol=1e-6, atol=0),
+                  f"router brute distances differ from the unsharded brute: {scores} {sscores}")
+            worst = max(worst, float(np.max(np.abs(scores - sscores) / np.abs(sscores))))
+            tied = np.zeros(10, bool)
+            tied[1:] |= scores[1:] == scores[:-1]
+            tied[:-1] |= scores[:-1] == scores[1:]
+            mismatch += int(((ids != sids) & ~tied).sum())
+        print(f"phase 7b: brute retrieval of 4 requests through the router equals retrieve_brute "
+              f"over one index of the {items.shape[0]} live rows: {mismatch} untied id mismatches, "
+              f"largest relative distance difference {worst:.3g}", flush=True)
+        check(mismatch == 0, f"router brute ids differ from the unsharded brute at {mismatch} "
+              "untied places")
+
+    def router_snapshot(self, router, queries):
+        """Save and load the churned router: tables and shard arrays
+        bit-equal, one request's answer identical."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.core.draws import TorchDraws
+        from repro_torch.index import ShardedIndex
+
+        tmp = tempfile.mkdtemp(dir=ROOT / "build")
+        try:
+            t0 = time.perf_counter()
+            router.save(os.path.join(tmp, "router"))
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = ShardedIndex.load(os.path.join(tmp, "router"), device=self.dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(dp, f))
+                       for dp, _, fs in os.walk(tmp) for f in fs)
+        finally:
+            shutil.rmtree(tmp)
+        check(back.next_gid == router.next_gid and back.n_shards == router.n_shards,
+              "router snapshot: manifest differs")
+        for s, (a, b) in enumerate(zip(router.shards, back.shards)):
+            check(np.array_equal(router.gids[s], back.gids[s]), f"router snapshot: table {s} differs")
+            for name in a.graph._fields:
+                u, v = getattr(a.graph, name), getattr(b.graph, name)
+                check(torch.equal(u, v) if isinstance(u, torch.Tensor) else u == v,
+                      f"router snapshot: shard {s} {name} differs")
+            check(torch.equal(a.items, b.items), f"router snapshot: shard {s} items differ")
+        q = queries[:REQUEST]
+        before = router.retrieve(q, 10, beam=64, draws=TorchDraws(ROUTER_SEED))
+        after = back.retrieve(q, 10, beam=64, draws=TorchDraws(ROUTER_SEED))
+        check(all(np.array_equal(u, v) for u, v in zip(before, after)),
+              "router snapshot: a request's answer differs before and after")
+        print(f"phase 7b: router snapshot, {size / 2**30:.3f} GiB: save {t_save:.3f} s, load "
+              f"{t_load:.3f} s, tables and every shard array bit-equal, one request identical "
+              "before and after", flush=True)
+
+    def phase_merge_shards(self):
+        """7c: the churned router collapsed into one index."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.core import brute
+        from repro_torch.core import graph as graph_lib
+        from repro_torch.core.draws import TorchDraws
+        from repro_torch.index import ShardedIndex
+
+        router, live, removed = self.router, self.live, self.removed
+        self.ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        router.merge_shards(refine_rounds=1, draws=TorchDraws(ROUTER_SEED + 1),
+                            search_chunk=MERGE_CHUNK)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        idx, table = router.shards[0], router.gids[0]
+        check(router.n_shards == 1 and idx.graph.n_valid == int(live.sum()),
+              "merge_shards: not one index over the live rows")
+        check(np.array_equal(np.sort(table), np.nonzero(live)[0]),
+              "merge_shards: the table does not hold exactly the live ids")
+        inv = graph_lib.graph_invariants_ok(idx.graph)
+        bad = [k for k, v in inv.items() if not bool(v.all())]
+        check(not bad, f"merge_shards: graph invariants violated: {bad}")
+        # every live id resolves: brute force over the merged rows finds
+        # each sampled id's own vector at the row its table entry names
+        pick = np.random.RandomState(LOOKUP_SEED).choice(np.nonzero(live)[0], LOOKUPS, replace=False)
+        vecs = torch.stack([self.source(int(gid)) for gid in pick])
+        rows, _ = brute.brute_force_knn(idx.items, vecs, 1, "l2", n_valid=idx.graph.n_valid,
+                                        device=self.dev)
+        found = table[rows[:, 0].cpu().numpy()]
+        check(np.array_equal(found, pick),
+              f"merge_shards: {int((found != pick).sum())} of {LOOKUPS} live ids do not resolve")
+        # the merged graph's own recall@10 over 2,048 of those rows
+        own = rows[:2048, 0]
+        truth, _ = brute.brute_force_knn(idx.items, vecs[:2048], 10, "l2", n_valid=idx.graph.n_valid,
+                                         exclude_ids=own, device=self.dev)
+        graph_recall = brute.recall_at_k(idx.graph.nbr_ids[own.long()], truth, 10)
+        queries = self.serve_queries
+
+        def serve(r):
+            """One round of requests through ``r``: (recall@10, removed ids served)."""
+            recall, dead = [], 0
+            for j in range(SERVE_BURST // REQUEST):
+                q = queries[j * REQUEST:(j + 1) * REQUEST]
+                ids, _ = r.retrieve(q, 10, beam=64, draws=TorchDraws(LOOP_SEED).fold_in(j))
+                truth, _ = r.retrieve(q, 10, brute=True)
+                dead += int(removed[ids[ids >= 0]].sum())
+                recall.append(len(set(ids.tolist()) & set(truth.tolist())) / 10)
+            return float(np.mean(recall)), dead
+
+        recall, served_dead = serve(router)
+        self.path_counts("merge_shards", "merge_shards and the merged index's serving")
+        # the same round seeded from a coarse level of the merged index
+        # (derived at the first search, SERVE_LANDMARKS landmarks)
+        cidx = idx.clone()
+        cidx.build_cfg = dataclasses.replace(idx.build_cfg, seed_mode="coarse",
+                                             coarse_landmarks=SERVE_LANDMARKS)
+        recall_c, dead_c = serve(ShardedIndex([cidx], [table], router.next_gid))
+        print(f"phase 7c: merge_shards of the churned router ({idx.graph.n_valid} live rows, one "
+              f"refine round, cross-search chunk {MERGE_CHUNK}): {t:.3f} s; {LOOKUPS} sampled "
+              f"live ids resolve to their own rows; one round of {SERVE_BURST} queries served, "
+              f"recall@10 {recall:.4f} from random entry points (the router's "
+              f"{self.router_recall:.4f}), {recall_c:.4f} seeded from {SERVE_LANDMARKS} "
+              f"landmarks; the merged graph's recall@10 over 2,048 of its rows "
+              f"{graph_recall:.4f}", flush=True)
+        check(served_dead + dead_c == 0,
+              f"the merged index served {served_dead + dead_c} removed global ids")
+
     def kernel_records(self):
         out = []
         for name, (source, replaces) in KERNELS.items():
@@ -1069,9 +1593,12 @@ class Smoke:
             # shape, and the large-C shape
             rec.update({k: v for k, v in r.items()
                         if k in ("warm_ms", "floor_ms", "index_select_ms")
-                        or k.startswith(("large_c_", "serve_"))})
+                        or k.startswith(("large_c_", "serve_", "merge_", "router_"))})
             if name in self.serve_launches:
                 rec["serve_launches"] = self.serve_launches[name]
+            for path, counts in self.path_launches.items():
+                if name in FP32_KERNELS:
+                    rec[f"{path}_launches"] = counts[name]
             out.append(rec)
         return out
 

@@ -13,6 +13,11 @@ searches' distance engine (fp32, bf16, int8 or PQ rank-then-rerank);
 level (``core.hierarchy``) that the waves keep up to date.  ``build`` also
 resumes from a graph (``initial``), which is how ``core.dynamic.insert``
 adds rows online.
+
+``build_parallel`` is the divide-and-conquer build: contiguous blocks
+built one after another on the one device, folded by a balanced tree of
+symmetric merges (``merge.merge_subgraphs``) and refined by NN-Descent
+join rounds (``nndescent.refine``).
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.core import brute, merge
+from repro_torch.core import brute, merge, nndescent
+from repro_torch.core import draws as draws_lib
 from repro_torch.core import search as search_lib
 from repro_torch.core.counters import counter
 from repro_torch.core.graph import KNNGraph, row_scales, squared_norms
@@ -91,6 +97,12 @@ class BuildStats(NamedTuple):
     n_comps: torch.Tensor  # distance computations (Eq. 2 numerator)
     n_waves: int
     n_inserted_edges: torch.Tensor
+
+
+def zero_stats(n_comps: int = 0, device=None) -> BuildStats:
+    """Fresh counters, optionally pre-charged with ``n_comps``."""
+    return BuildStats(n_comps=counter(n_comps, device), n_waves=0,
+                      n_inserted_edges=counter(0, device))
 
 
 def scanning_rate(stats: BuildStats, n: int) -> float:
@@ -364,9 +376,7 @@ def build(
             pre_charge += coarse_comps
     if coarse is not None:
         coarse = coarse.to(dev)
-    stats = BuildStats(
-        n_comps=counter(pre_charge, dev), n_waves=0, n_inserted_edges=counter(0, dev)
-    )
+    stats = zero_stats(pre_charge, dev)
     trk = tracker if tracker is not None else NOOP
     W = cfg.wave
     pos = start
@@ -414,3 +424,101 @@ def _wave_seeds(seed_fn, generator, wave, pos, W, n_valid, cfg, coarse, dev):
         seeds = search_lib.random_seeds(W, cfg.n_seeds, n_valid, generator, dev)
     seeds = torch.as_tensor(seeds).to(dev)
     return seeds, None if coarse_seeds is None else torch.as_tensor(coarse_seeds).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Divide-and-conquer construction: sub-builds + symmetric merges
+# ---------------------------------------------------------------------------
+
+
+def partition_bounds(n: int, shards: int):
+    """Contiguous partition boundaries (shards + 1 ints, balanced to one
+    row), the sharded router's split too."""
+    import numpy as np
+
+    if not 1 <= shards <= n:
+        raise ValueError(f"need 1 <= shards <= n, got {shards} for n={n}")
+    return np.linspace(0, n, shards + 1).astype(int)
+
+
+def build_parallel(
+    x: torch.Tensor,
+    cfg: BuildConfig,
+    draws=None,
+    *,
+    shards: int = 2,
+    refine_rounds: int = 1,
+    search_chunk: int = 512,
+    mesh=None,
+    return_coarse: bool = False,
+    sub_cfg: Optional[BuildConfig] = None,
+    merge_scfg: Optional[SearchConfig] = None,
+    tracker=None,
+    device=None,
+):
+    """Divide-and-conquer build: ``shards`` contiguous blocks of x, each
+    built by ``build`` (``sub_cfg``, default ``cfg``), folded by
+    ``merge.merge_subgraphs`` (cross searches at ``merge_scfg``, default
+    ``cfg.search_config()``, in chunks of ``search_chunk``), then
+    ``refine_rounds`` NN-Descent join rounds.  The graph's ids are the rows
+    of x, as in a sequential build.
+
+    Entry points come from ``draws`` (a ``core.draws.Draws``, default
+    ``TorchDraws(0)``) along the reference's chain: block s builds from
+    ``fold_in(s)``, the merge tree from ``fold_in(1_000_000)`` and a coarse
+    level re-derived on the merged graph from ``fold_in(2_000_000)``.
+    ``shards=1`` is ``build``.  The blocks build one after another on the
+    one device; a ``mesh`` (one block per device) is refused.  ``tracker``
+    (an ``obs.Tracker``) times the sub-builds (``parallel/subbuild``), each
+    merge level and the folds (``merge_subgraphs``) and the refine
+    (``parallel/refine``).  ``device``: where to run (None: the card).
+
+    Returns (graph, stats), plus the coarse level when ``return_coarse``:
+    the merge tree's root level, or one re-derived under
+    ``seed_mode="coarse"`` when no folded level survived, else None.
+    """
+    from repro_torch.core import hierarchy  # late: hierarchy imports construct
+    from repro_torch.obs import NOOP
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_parallel on a device mesh needs core.distributed, not ported yet "
+            "(ROADMAP Queue A item 12)")
+    dev = device_lib.resolve(device)
+    x = x.to(dev).float()
+    n = x.shape[0]
+    draws = draws_lib.TorchDraws(0) if draws is None else draws
+    if shards == 1:
+        return build(x, cfg, return_coarse=return_coarse, tracker=tracker, device=dev,
+                     **draws_lib.build_kw(draws, n, cfg, dev))
+    bounds = partition_bounds(n, shards)
+    sub = sub_cfg if sub_cfg is not None else cfg
+    trk = tracker if tracker is not None else NOOP
+    graphs, coarses = [], []
+    sub_comps = sub_waves = sub_edges = 0
+    with trk.span("parallel/subbuild") as sp:
+        for s in range(shards):
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            g, st, c = build(x[lo:hi], sub, return_coarse=True, device=dev,
+                             **draws_lib.build_kw(draws.fold_in(s), hi - lo, sub, dev))
+            graphs.append(g)
+            coarses.append(c)
+            sub_comps += int(st.n_comps)
+            sub_waves += st.n_waves
+            sub_edges += int(st.n_inserted_edges)
+        sp.synced = True  # the counters' int() are the sync
+    scfg = merge_scfg if merge_scfg is not None else cfg.search_config()
+    g, merge_comps, coarse = merge.merge_subgraphs(
+        graphs, x, scfg, draws.fold_in(1_000_000), search_chunk=search_chunk, coarses=coarses,
+        tracker=tracker)
+    with trk.span("parallel/refine") as sp:
+        g, refine_comps = nndescent.refine(g, x, cfg.metric, rounds=refine_rounds)
+        sp.sync(g.nbr_ids)
+    stats = BuildStats(n_comps=counter(sub_comps + merge_comps + refine_comps, dev),
+                       n_waves=sub_waves, n_inserted_edges=counter(sub_edges, dev))
+    if not return_coarse:
+        return g, stats
+    if coarse is None and cfg.seed_mode == "coarse":
+        coarse = hierarchy.derive_coarse(
+            g, x, cfg, device=dev, **draws_lib.derive_kw(draws.fold_in(2_000_000), g, cfg, dev))
+    return g, stats, coarse

@@ -16,10 +16,8 @@ Removals mask rows (``purge_rows``), compaction remaps them
 (``remap_rows``), and a level can be re-derived from a live graph
 (``derive_coarse``).  Landmarks are drawn from a ``torch.Generator`` unless
 the caller injects them (``landmark_rows``), and the landmark graph's entry
-points likewise (``seed_fn``).
-
-``fold_coarse`` (the divide-and-conquer build's fold of two levels) is not
-ported yet.
+points likewise (``seed_fn``).  ``fold_coarse`` folds the levels of two
+merged blocks into one (the divide-and-conquer build's merge tree).
 """
 
 from __future__ import annotations
@@ -176,6 +174,39 @@ def build_coarse(
     if landmark_rows is None:
         landmark_rows = torch.randperm(n, generator=generator, device=dev)[:L]
     return _assemble(x, landmark_rows, cfg, assign_rows, seed_fn=seed_fn, generator=generator)
+
+
+def fold_coarse(
+    ca: Optional[CoarseLevel],
+    cb: Optional[CoarseLevel],
+    n_a: int,
+    scfg,
+    draws,
+) -> tuple[Optional[CoarseLevel], int]:
+    """Fold the levels of two merged blocks into one level of the merged
+    graph.  ``ca`` routes rows [0, n_a), ``cb`` the right block in its local
+    rows, which are offset by n_a (as ``merge.stack_subgraphs`` offsets the
+    graphs).  The landmark graphs merge by ``merge.symmetric_merge`` over
+    the concatenated routing points, random-seeded from ``draws`` (a
+    ``core.draws.Draws``), and the member rings concatenate.  Either side
+    missing gives no level.  Returns (level or None, comps of the landmark
+    merge)."""
+    if ca is None or cb is None:
+        return None, 0
+    points = torch.cat([ca.points, cb.points])
+    gc, comps = merge.symmetric_merge(ca.graph, cb.graph, points, scfg, draws)
+
+    def off(a):
+        return torch.where(a >= 0, a + n_a, -1)
+
+    level = CoarseLevel(
+        landmark_rows=torch.cat([ca.landmark_rows, off(cb.landmark_rows)]),
+        points=points,
+        graph=gc,
+        members=torch.cat([ca.members, off(cb.members)]),
+        mem_ptr=torch.cat([ca.mem_ptr, cb.mem_ptr]),
+    )
+    return level, comps
 
 
 def derive_coarse(

@@ -74,6 +74,61 @@ def gather_distance(
     )
 
 
+# query rows per ``merge_proposals`` gather: the plain version holds a
+# chunk's (rows, C, d) candidate rows at once (16,384 x 400 x 128 floats is
+# 3.4 GB), and rows are independent, so the chunking changes no value
+MERGE_PROPOSAL_ROWS = 16384
+
+
+def merge_proposals(
+    q: torch.Tensor,
+    xt: torch.Tensor,
+    hit_ids: torch.Tensor,
+    t_nbr_ids: torch.Tensor,
+    t_alive: torch.Tensor,
+    metric: str = "l2",
+    *,
+    sq_norms: Optional[torch.Tensor] = None,
+    hop_top: Optional[int] = None,
+):
+    """Second-hop merge candidates: for each query row with cross-search
+    hits ``hit_ids`` (B, k) (target-local ids, -1 padded, nearest first),
+    the forward lists of its nearest ``hop_top`` hits in the target graph
+    (``t_nbr_ids``), dead targets masked, with their distances from
+    ``gather_distance`` (``sq_norms``: the target's norm cache), in chunks
+    of ``MERGE_PROPOSAL_ROWS`` query rows.
+
+    Returns (ids (B, h·k_t) int32 target-local, -1 masked; distances, +inf
+    at masked lanes; the number of lanes evaluated, a 0-d int64 tensor),
+    h = min(hop_top, k)."""
+    if hop_top is not None and hop_top < hit_ids.shape[1]:
+        hit_ids = hit_ids[:, :hop_top]
+    ids, dists = [], []
+    comps = torch.zeros((), dtype=torch.int64, device=hit_ids.device)
+    chunk = MERGE_PROPOSAL_ROWS
+    for lo in range(0, hit_ids.shape[0], chunk):
+        hit = hit_ids[lo:lo + chunk]
+        hop = t_nbr_ids[hit.clamp_min(0).long()]  # (b, h, k_t)
+        hop = torch.where(hit[:, :, None] >= 0, hop, -1).reshape(hit.shape[0], -1)
+        hop = torch.where((hop >= 0) & t_alive[hop.clamp_min(0).long()], hop, -1)
+        d = gather_distance(q[lo:lo + chunk], xt, hop, metric, sq_norms=sq_norms)
+        live = hop >= 0
+        ids.append(hop)
+        dists.append(torch.where(live, d, float("inf")))
+        comps = comps + live.sum()
+    width = hit_ids.shape[1] * t_nbr_ids.shape[1]
+    if not ids:
+        return (torch.empty((0, width), dtype=torch.int32, device=hit_ids.device),
+                torch.empty((0, width), dtype=torch.float32, device=hit_ids.device), comps)
+    return torch.cat(ids), torch.cat(dists), comps
+
+
+def topk_smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):
+    """Row-wise smallest-k (dists, ids), ties to the lower column; see
+    ``ref.topk_smallest``."""
+    return ref.topk_smallest(dists, ids, k)
+
+
 def expand_step(
     q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
     *, metric: str = "l2", hash_probes: int = 8, sq_norms: Optional[torch.Tensor] = None,

@@ -16,7 +16,8 @@ JSON object per line with:
 - ``floor_ms``: the same timer over an empty kernel launched with the
   gather's own grid, block and shared memory (``gather_dist.gather_floor``),
   the least any gather can read under it;
-- ``index_select_ms``: ``table.index_select(0, ids)`` over the cold sets,
+- ``index_select_ms``: ``table.index_select(0, ids)`` of each cold set's
+  valid (non-negative) ids,
   which moves the same rows and computes no distance;
 - ``plain_ms`` over the cold sets, and ``bound_ms`` with what bounds it
   (``gather_bound``, the mean over the timed sets).
@@ -129,7 +130,7 @@ def measure(x, sets, precision: str) -> dict:
     B, C = idx0.shape
     d = x.shape[1]
     bounds = [gather_bound(idx, d, precision) for _, idx in sets[2:]]
-    flats = [idx.flatten() for _, idx in sets]
+    flats = [idx[idx >= 0] for _, idx in sets]  # -1 pads no row
     time_ms = profile_build.time_ms
     return {
         "precision": precision, "B": B, "C": C, "d": d, "n": x.shape[0],

@@ -3,12 +3,16 @@ graph recall scored against brute force.
 
     PYTHONPATH=src python -m repro_torch.launch.build_graph \\
         --n 1000000 --d 128 --k 20 --wave 4096 --eval-sample 10000 \\
-        [--precision {fp32,bf16,int8,pq}]
+        [--precision {fp32,bf16,int8,pq}] \\
+        [--parallel-shards 4 --refine-rounds 1 --search-chunk 4096]
 
 The build is the knn-lgd configuration with the flags' fields replaced, over
 ``clustered`` rows drawn from ``DATA_SEED``, with entry points drawn from
 ``BUILD_SEED``; ``chip_smoke.py`` builds from the same seeds, so the two
-agree at the same n, d and flags.  Runs on the card (the hand-written
+agree at the same n, d and flags.  ``--parallel-shards S`` (S > 1) runs the
+divide-and-conquer build instead (``construct.build_parallel``: S sub-builds,
+the merge tree, ``--refine-rounds`` NN-Descent rounds), keyed by
+``TorchDraws(BUILD_SEED)``.  Runs on the card (the hand-written
 kernels); ``--device cpu`` runs the plain PyTorch versions instead.  Unlike
 the JAX launcher, which pins ``dispatch="reference"``, nothing here selects
 an engine: the device does.
@@ -25,6 +29,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs import knn_lgd
 from repro_torch.core import brute, construct
+from repro_torch.core.draws import TorchDraws
 from repro_torch.data import synthetic
 from repro_torch.kernels.precision import PRECISIONS
 
@@ -62,8 +67,23 @@ def main(argv=None):
                          "tables (bf16/int8) or PQ rank-then-rerank")
     ap.add_argument("--eval-sample", type=int, default=0, metavar="M",
                     help="score graph recall@10 over M strided rows (0: skip)")
+    ap.add_argument("--parallel-shards", type=int, default=1, metavar="S",
+                    help="divide-and-conquer build: S sub-graphs folded by symmetric "
+                         "merges (1: the sequential online build)")
+    ap.add_argument("--refine-rounds", type=int, default=1,
+                    help="NN-Descent rounds after the merge (parallel builds)")
+    ap.add_argument("--search-chunk", type=int, default=512,
+                    help="cross-search batch of the merge (parallel builds)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume a checkpointed sequential build (not ported yet)")
     ap.add_argument("--device", default=None, help="default: the card")
     args = ap.parse_args(argv)
+    if args.resume:
+        if args.parallel_shards > 1:
+            raise SystemExit("--resume is a sequential-build feature "
+                             "(parallel builds restart their sub-builds)")
+        raise NotImplementedError(
+            "--resume needs the graph checkpoints, not ported yet (ROADMAP Queue A item 10b)")
 
     dev = device_lib.resolve(args.device)
     x = make_data(args.n, args.d, args.metric, dev)
@@ -71,16 +91,23 @@ def main(argv=None):
         knn_lgd.full_config(), k=args.k, metric=args.metric, wave=args.wave,
         lgd=args.algo == "lgd", beam=max(40, args.k), precision=args.precision,
     )
-    gen = torch.Generator(device=dev).manual_seed(BUILD_SEED)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    g, stats = construct.build(x, cfg, generator=gen, device=dev)
+    if args.parallel_shards > 1:
+        g, stats = construct.build_parallel(
+            x, cfg, TorchDraws(BUILD_SEED), shards=args.parallel_shards,
+            refine_rounds=args.refine_rounds, search_chunk=args.search_chunk, device=dev)
+        mode = f" ({args.parallel_shards}-shard parallel)"
+    else:
+        gen = torch.Generator(device=dev).manual_seed(BUILD_SEED)
+        g, stats = construct.build(x, cfg, generator=gen, device=dev)
+        mode = ""
     if dev.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     c = construct.scanning_rate(stats, args.n)
-    print(f"built {args.algo.upper()} graph on {dev}: n={args.n} d={args.d} "
+    print(f"built {args.algo.upper()} graph on {dev}{mode}: n={args.n} d={args.d} "
           f"k={args.k} metric={args.metric} wave={args.wave} "
           f"precision={args.precision} in {dt:.3f}s "
           f"({(args.n / dt):.1f} rows/s), scanning rate c={c:.6f}")

@@ -2,14 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
         --n-items 8000 --d 16 --requests 20 --topk 10 \\
-        [--snapshot PATH] [--trace PATH] [--device cpu]
+        [--shards 4] [--snapshot PATH] [--trace PATH] [--device cpu]
 
 Builds an ``OnlineIndex`` over unit-norm N(0,1) items under the inner
 product, optionally round-trips it through a snapshot, and serves 4-query
 requests through the instrumented ``ServingLoop``, reporting p50/p99
-latency, QPS, recall and scanning rate.  Runs on the card unless
-``--device cpu``.  ``--shards > 1`` (the sharded router) and ``--mode lm``
-are not ported yet.
+latency, QPS, recall and scanning rate.  ``--shards S`` (S > 1) builds a
+``ShardedIndex`` of S shards instead and serves each request through its
+fan-out (``ShardedIndex.retrieve``, one ``router/shard<s>`` span per shard
+in the trace), reporting p50/p99 latency and QPS.  Runs on the card unless
+``--device cpu``.  ``--mode lm`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +27,46 @@ from repro_torch import device as device_lib
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def serve_sharded(args, items, dev, tracker) -> dict:
+    """The router path: build, optional snapshot round trip, then one
+    ``retrieve`` per 4-query request, latency taken around the merged
+    answer (a host array, so the card's work is in it)."""
+    import numpy as np
+
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.index import ShardedIndex
+
+    t0 = time.perf_counter()
+    index = ShardedIndex.build(items, args.shards, k=16, metric="ip", wave=512,
+                               draws=TorchDraws(1), device=dev)
+    _sync(dev)
+    print(f"indexed {args.n_items} items over {args.shards} shards on {dev} in "
+          f"{time.perf_counter() - t0:.3f}s")
+    if args.snapshot:
+        t0 = time.perf_counter()
+        index.save(args.snapshot)
+        index = ShardedIndex.load(args.snapshot, device=dev)
+        print(f"snapshot round trip ({args.snapshot}) in {time.perf_counter() - t0:.3f}s")
+    if tracker is not None:
+        index.tracker = tracker
+        for sh in index.shards:
+            sh.tracker = tracker
+    qgen = torch.Generator(device=dev).manual_seed(100)
+    lat = []
+    for r in range(args.requests):
+        q = torch.randn((4, args.d), generator=qgen, device=dev)
+        t0 = time.perf_counter()
+        index.retrieve(q, args.topk, beam=48)
+        lat.append(time.perf_counter() - t0)
+    lat_ms = np.asarray(lat[2:] if len(lat) > 2 else lat) * 1e3  # warm-up dropped
+    rec = {"n_served": 4 * args.requests, "p50_latency_ms": float(np.percentile(lat_ms, 50)),
+           "p99_latency_ms": float(np.percentile(lat_ms, 99)),
+           "qps": 4 * lat_ms.size / (lat_ms.sum() / 1e3)}
+    print(f"{args.requests} requests over {args.shards} shards: p50={rec['p50_latency_ms']:.3f}ms "
+          f"p99={rec['p99_latency_ms']:.3f}ms qps={rec['qps']:.1f}")
+    return rec
 
 
 def serve_retrieval(args) -> dict:
@@ -43,6 +85,12 @@ def serve_retrieval(args) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     items = torch.randn((args.n_items, args.d), generator=gen, device=dev)
     items = items / torch.linalg.norm(items, dim=1, keepdim=True)
+    if args.shards > 1:
+        rec = serve_sharded(args, items, dev, tracker)
+        if tracker is not None:
+            tracker.finish()
+            print(f"trace written to {args.trace}")
+        return rec
     _sync(dev)
     t0 = time.perf_counter()
     index = retrieval.build_index(items, k=16, metric="ip", wave=512,
@@ -82,7 +130,7 @@ def main(argv=None):
     ap.add_argument("--n-items", type=int, default=8000)
     ap.add_argument("--d", type=int, default=16)
     ap.add_argument("--shards", type=int, default=1,
-                    help="serve through the sharded router (>1; not ported yet)")
+                    help="serve through the sharded router over this many shards (> 1)")
     ap.add_argument("--snapshot", type=str, default=None, metavar="PATH",
                     help="save and restore the index through a snapshot before serving")
     ap.add_argument("--requests", type=int, default=20)
@@ -94,9 +142,6 @@ def main(argv=None):
     if args.mode == "lm":
         raise NotImplementedError(
             "--mode lm needs the model substrate, not ported yet (ROADMAP Queue A item 13)")
-    if args.shards > 1:
-        raise NotImplementedError(
-            "--shards > 1 needs the sharded router, not ported yet (ROADMAP Queue A item 10)")
     return serve_retrieval(args)
 
 

@@ -422,3 +422,110 @@ def test_serving_shapes(card, precision, B, integer):
             elif integer or name in ("beam_dist", "vis_dist"):
                 close(a.float(), b.float(), f"step {step} {name}")
         state = want[:5]
+
+
+# ---------------------------------------------- the divide-and-conquer slice
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_merge_proposals_shape(card, integer, monkeypatch):
+    """The second-hop gather at the merge's shape (C = HOP_TOP·k = 400,
+    d=128), in row chunks smaller than the side: bit for bit on integer
+    rows, to tolerance on Gaussian rows; one launch per chunk."""
+    from repro_torch.core.merge import HOP_TOP
+
+    n, d, k = 4000, 128, 20
+    rng = np.random.RandomState(31)
+    x = _data((n, d), 32, "l2", integer, card)
+    q = _data((2500, d), 33, "l2", integer, card)
+    hits = torch.from_numpy(rng.randint(-1, n, (2500, k))).int().to(card)
+    t_nbr = torch.from_numpy(rng.randint(-1, n, (n, k))).int().to(card)
+    alive = torch.from_numpy(rng.rand(n) > 0.05).to(card)
+    sq = (x * x).sum(-1)
+    monkeypatch.setattr(ops, "MERGE_PROPOSAL_ROWS", 1024)
+    ops.reset_launch_counts()
+    got = ops.merge_proposals(q, x, hits, t_nbr, alive, sq_norms=sq, hop_top=HOP_TOP)
+    assert ops.launch_counts()["gather_distance"] == 3
+    assert got[0].shape == (2500, HOP_TOP * k)
+    want = ref.gather_distance(q, x, got[0], "l2", sq_norms=sq)
+    if integer:
+        assert torch.equal(got[1], want)
+    else:
+        torch.testing.assert_close(got[1], want, rtol=1e-5, atol=1e-3)
+
+
+def _graph_fields_equal(a, b):
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y, name
+
+
+def test_parallel_build_kernels_match_plain(card, monkeypatch):
+    """build_parallel (3 blocks, one refine round) on integer rows: the
+    same graph and counters through the kernels and the plain versions,
+    every kernel launched."""
+    from repro_torch.core.draws import TorchDraws
+
+    x = _data((3000, 16), 34, "l2", True, card)
+    cfg = construct.BuildConfig(k=10, wave=256, beam=24, n_seeds=4, max_iters=30)
+    ops.reset_launch_counts()
+    g_k, st_k = construct.build_parallel(x, cfg, TorchDraws(5), shards=3, search_chunk=256,
+                                         device=card)
+    counts = ops.launch_counts()
+    assert all(counts[n] > 0 for n in ("gather_distance", "fused_expand", "pairwise_distance"))
+    _route_plain(monkeypatch)
+    g_p, st_p = construct.build_parallel(x, cfg, TorchDraws(5), shards=3, search_chunk=256,
+                                         device=card)
+    _graph_fields_equal(g_k, g_p)
+    assert int(st_k.n_comps) == int(st_p.n_comps)
+    assert ops.launch_counts() == counts
+
+
+def test_router_kernels_match_plain(card, monkeypatch):
+    """A 3-shard router's churn (add, remove, compact), graph and brute
+    retrieval and merge_shards, through the kernels and the plain
+    versions: the same shards, tables and answers."""
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.index import ShardedIndex
+
+    x = _data((3000, 16), 35, "l2", True, card)
+    new = _data((200, 16), 36, "l2", True, card)
+    q = _data((8, 16), 37, "l2", True, card)
+    cfg = construct.BuildConfig(k=10, wave=256, beam=24, n_seeds=4, max_iters=30)
+
+    def run():
+        r = ShardedIndex.build(x, 3, cfg, draws=TorchDraws(6), device=card)
+        r.add(new, seed_fn=lambda w, p, W, nv: TorchDraws(7 + w).randint((W, 4), nv, card))
+        r.remove(np.arange(0, 3200, 11))
+        r.compact()
+        answers = [r.retrieve(q, 10, beam=32, draws=TorchDraws(8)), r.retrieve(q, 10, brute=True)]
+        r.merge_shards(draws=TorchDraws(9))
+        return r, answers + [r.retrieve(q, 10, beam=32, draws=TorchDraws(10))]
+
+    ops.reset_launch_counts()
+    r_k, a_k = run()
+    counts = ops.launch_counts()
+    assert all(counts[n] > 0 for n in ("gather_distance", "fused_expand", "pairwise_distance"))
+    _route_plain(monkeypatch)
+    r_p, a_p = run()
+    _graph_fields_equal(r_k.shards[0].graph, r_p.shards[0].graph)
+    assert np.array_equal(r_k.gids[0], r_p.gids[0])
+    for (i_k, s_k), (i_p, s_p) in zip(a_k, a_p):
+        assert np.array_equal(i_k, i_p) and np.array_equal(s_k, s_p)
+
+
+def test_nndescent_build_kernel_matches_plain(card, monkeypatch):
+    """NN-Descent's random initial lists (the gather at B = n, C = k + 4)
+    and its join rounds give the same graph through the kernel."""
+    from repro_torch.core import nndescent
+    from repro_torch.core.draws import TorchDraws
+
+    x = _data((2000, 16), 38, "l2", True, card)
+    cfg = nndescent.NNDescentConfig(k=10, max_iters=3, node_chunk=512)
+    ops.reset_launch_counts()
+    g_k, st_k = nndescent.build(x, cfg, TorchDraws(11), device=card)
+    assert ops.launch_counts()["gather_distance"] == 1
+    _route_plain(monkeypatch)
+    g_p, st_p = nndescent.build(x, cfg, TorchDraws(11), device=card)
+    _graph_fields_equal(g_k, g_p)
+    assert st_k == st_p

@@ -26,7 +26,7 @@ from repro.serve.loop import ServingLoop as JLoop
 from repro_torch.core import construct
 from repro_torch.index import OnlineIndex
 from repro_torch.launch import serve as serve_launch
-from repro_torch.obs import InMemoryTracker
+from repro_torch.obs import InMemoryTracker, load_events
 from repro_torch.serve import retrieval
 from repro_torch.serve.loop import ServeLoopConfig, ServingLoop, _slice_result
 
@@ -303,8 +303,14 @@ def test_launcher_runs_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "indexed 600 items on cpu" in out and "snapshot round trip" in out
     assert rec["n_served"] == 8 and (tmp_path / "t.jsonl").exists()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serve_launch.main(["--shards", "2", "--device", "cpu"])
+    rec = serve_launch.main(["--n-items", "600", "--d", "8", "--requests", "4", "--device", "cpu",
+                             "--shards", "2", "--snapshot", str(tmp_path / "router"), "--trace",
+                             str(tmp_path / "router.jsonl")])
+    out = capsys.readouterr().out
+    assert "over 2 shards on cpu" in out and "snapshot round trip" in out
+    assert rec["n_served"] == 16 and rec["p99_latency_ms"] >= rec["p50_latency_ms"] > 0
+    spans = {e["name"] for e in load_events(str(tmp_path / "router.jsonl")) if e.get("event") == "span"}
+    assert {"router/shard0", "router/shard1"} <= spans
     with pytest.raises(NotImplementedError, match="item 13"):
         serve_launch.main(["--mode", "lm", "--device", "cpu"])
 

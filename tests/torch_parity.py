@@ -86,6 +86,38 @@ def to_torch_graph(g_jax):
     return convert.graph_from_numpy(jax_graph_numpy(g_jax))
 
 
+class JaxDraws:
+    """A ``repro_torch.core.draws.Draws`` that replays a ``jax.random`` key:
+    ``fold_in``/``split`` derive keys as the reference does, and the draws
+    are the reference's ``randint``/``choice``/``permutation`` of the key,
+    handed over as torch tensors."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def fold_in(self, data: int) -> "JaxDraws":
+        return JaxDraws(jax.random.fold_in(self.key, data))
+
+    def split(self):
+        a, b = jax.random.split(self.key)
+        return JaxDraws(a), JaxDraws(b)
+
+    def randint(self, shape, high: int, device=None) -> torch.Tensor:
+        a = jax.random.randint(self.key, tuple(shape), 0, max(int(high), 1), dtype=jnp.int32)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    def choice(self, n: int, size: int, device=None) -> torch.Tensor:
+        a = jax.random.choice(self.key, n, shape=(size,), replace=False).astype(jnp.int32)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    def permutation(self, n: int, device=None) -> torch.Tensor:
+        return torch.from_numpy(np.array(jax.random.permutation(self.key, n))).to(device)
+
+
+def draws(seed: int) -> JaxDraws:
+    return JaxDraws(jax.random.PRNGKey(seed))
+
+
 def search_seeds(key, B: int, p: int, n_valid: int) -> np.ndarray:
     """The (B, p) entry points ``repro.core.search.init_state`` draws from
     ``key`` under random seeding (``search.py:391``)."""
