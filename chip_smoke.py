@@ -6,10 +6,10 @@
 needs one NVIDIA card and runs, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. builds the three hand-written kernel sources from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together: seven kernels, the fp32,
+2. builds the four hand-written kernel sources from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all started together: eight kernels, the fp32,
    bf16 and int8 forms of ``gather_distance`` and ``fused_expand`` and the
-   fp32 ``pairwise_distance``) and holds each kernel against its plain
+   fp32 and bf16-operand ``pairwise_distance``) and holds each kernel against its plain
    PyTorch version on the card: at a small shape for each of the five
    metrics and at the main path's shapes, distances to ``rtol=1e-5,
    atol=1e-3`` on Gaussian data and bit for bit on integer-valued data
@@ -36,7 +36,12 @@ needs one NVIDIA card and runs, in order:
    rows, each timed.
    Last, the merge's second-hop gather (``ops.merge_proposals``): one row
    chunk of 16,384 queries x C = HOP_TOP * k = 400 ids over the 10^6 rows,
-   exact on integer rows, to the tolerance on clustered rows, timed;
+   exact on integer rows, to the tolerance on clustered rows, timed.  The
+   router's request shapes are timed too: ``fused_expand`` at B=4, C=60,
+   e=64, H=2048 and the seed gather of a shard's search (B=4, C=8 over a
+   250,000-row shard).  The bf16-operand ``pairwise_distance`` is held
+   against its plain version at the small shapes and at the 4,096² tile
+   (bit for bit on integer rows) and timed there beside the fp32 kernel;
 3. an n=20,000, d=32 integer-valued build with the kernels and the same
    build with the plain versions, from the same injected seeds, at fp32,
    int8 and bf16: every graph array and the counters must be identical.  On
@@ -48,7 +53,9 @@ needs one NVIDIA card and runs, in order:
    kernels and plain: ``build_parallel`` (3 blocks, one refine round), a
    3-shard router's add, remove, compact, graph and brute retrieval and
    ``merge_shards``, every draw injected; every array, table and answer
-   identical;
+   identical.  Two more builds, kernels against plain: ``intra_wave=False``
+   at W=64 on the first 10,000 of the rows (a cut of its depth, for the
+   run's time aim), and ``data_bf16`` (the rows stored bf16) at W=1024;
 4. the online LGD build at full width (the knn-lgd config: k=20, l2, W=4096,
    beam 40, 8 seeds, d=128) over n=1,000,000 clustered rows, then graph
    recall@10 over 10,000 strided rows against ``brute_force_knn`` run
@@ -67,7 +74,9 @@ needs one NVIDIA card and runs, in order:
    prunes at this config (C = k + 2k = 60 <= 80 kept), so the pruning factor
    1 is held to an overlap with fp32 and against itself on the CPU: the
    card's PQ codes against the CPU's encoder, and the whole search, run
-   again on the CPU with the card's codes, graph and entry points;
+   again on the CPU with the card's codes, graph and entry points.  And the
+   build with the rows stored bf16 (``data_bf16``: bf16 tables, bf16-operand
+   tile and seed graph), held to the same recall floor;
 6. serving at full width: phase 4's graph as an ``OnlineIndex`` at capacity
    10^6 behind a ``ServingLoop`` (top_k 10, beam 64, waves of up to 64,
    a 96-query recall reservoir sampling every 5th query), one untimed
@@ -87,14 +96,15 @@ needs one NVIDIA card and runs, in order:
    with the tracker on bit-identical to the wave with it off;
 7. the sharded router and the divide-and-conquer build at full width:
    (a) ``build_parallel`` of phase 4's rows in 4 blocks at the knn-lgd
-   config, one refine round, cross searches in chunks of 4,096: seconds by
+   config, one refine round, cross searches in chunks of 16,384: seconds by
    span (sub-builds, each merge level, folds, refine) and the device time of
    the refine's whole-capacity ``merge_candidates`` calls, comps, peak
    memory, recall@10 over phase 4's rows, which must reach the sequential
    recall less 0.02 (the reference's tolerance), or, where it misses, the
    same build through the plain versions less 0.01; invariants and the
-   canonical λ.  (b) A 4-shard ``ShardedIndex`` of the same rows under
-   phase 6's traffic in requests of 4 queries through ``retrieve`` (churn:
+   canonical λ.  (b) A 4-shard ``ShardedIndex`` of the same rows under 12
+   of phase 6's rounds (half of them: a cut of its depth, for the run's
+   time aim) in requests of 4 queries through ``retrieve`` (churn:
    4,096 random live ids removed, 4,096 fresh rows added in batches that
    fit the least-filled shard, ``compact()``): p50/p99 per request, QPS,
    comps/query, the ``router/shard<s>`` spans, recall@10 against brute
@@ -103,12 +113,25 @@ needs one NVIDIA card and runs, in order:
    index of the same live rows, a bit-exact snapshot round trip.  (c)
    ``merge_shards`` of the churned router: every sampled live id resolves
    to its own row, no removed id served, one round served;
-8. a ``kernels`` JSON line: each kernel's launches in the build of its own
-   precision (phase 4 for fp32, phase 5 for bf16 and int8) and, for the
-   three fp32 kernels, in the serving run (``serve_launches``) and in each
-   phase 7 path (``parallel_launches``, ``router_launches``,
-   ``merge_shards_launches``), its error against the plain version, times
-   and bound.
+8. the device mesh at full width: 4 ranks of a gloo group on the one card
+   (``_mesh_rank``, spawned), each owning a 250,000-row shard of phase 4's
+   rows: (a) per-shard exact seed graphs and the shard step in lockstep
+   waves of W=4096 (seconds, waves, all-reduced comps); (b) the
+   scatter-gather search of phase 5's 4,096 held-out queries in waves of 64
+   (recall@10 against brute force over all 10^6 rows, latency per wave),
+   then with shard 0 blanked, which must serve none of its rows;
+   (c) ``build_parallel(mesh=group, shards=4)`` with one refine round
+   (seconds by span, recall@10 over phase 4's rows, which must reach phase
+   7a's less 0.02, the same graph on every rank).  A rank that fails fails
+   the run;
+9. a ``kernels`` JSON line: each kernel's launches in the build of its own
+   precision (phase 4 for fp32, phase 5 for bf16 and int8, the ``data_bf16``
+   build for the bf16-operand pairwise) and, for the three fp32 kernels, in
+   the serving run (``serve_launches``) and in each phase 7 and 8 path
+   (``parallel_launches``, ``router_launches``, ``merge_shards_launches``,
+   ``mesh_build_launches``, ``mesh_search_launches``,
+   ``mesh_parallel_launches``, summed over the ranks), its error against
+   the plain version, times and bound.
 
 It exits non-zero, printing no result, when any phase fails, when no CUDA
 device is present, or when it is run without the rest of the repository.
@@ -138,6 +161,11 @@ QUERY_SEED, SEARCH_SEED = 17, 19  # phase 5's held-out queries and entry points
 # same mixture), the loop's entry points, the victims, the coarse landmarks
 SERVE_QUERY_SEED, FRESH_SEED, LOOP_SEED, VICTIM_SEED, LANDMARK_SEED = 29, 23, 31, 37, 41
 SERVE_ROUNDS, SERVE_BURST, CHURN, CHURN_EVERY = 24, 40, 4096, 4
+# phase 7b serves half of phase 6's rounds (its 4-query requests pay the
+# host loop once per shard), which keeps the run inside its time aim
+ROUTER_ROUNDS = 12
+# phase 3: rows of the build without the intra-wave tile (a cut of its depth)
+INTRA_OFF_ROWS = 10_000
 SERVE_LANDMARKS = 4000
 # phase 5's pruning PQ search (rerank_factor=1): its top-k overlap with the
 # fp32 search (0.8946 in two runs on an H100 80GB HBM3 at 700 W), and its
@@ -146,14 +174,21 @@ SERVE_LANDMARKS = 4000
 # card's PQ codes that the CPU's encoder gives too (ties only)
 PQ_PRUNE_OVERLAP, PQ_CPU_AGREE, PQ_CODES_AGREE = 0.88, 0.99, 0.999
 
-# phase 7: blocks of the parallel build and shards of the router, the merge
-# cross searches' batch (the wave's width: the reference's default 512 would
-# cost 8x the host iterations), queries per router request (a user's
-# interests, as the serving launcher sends them), the router's draws, and
-# the live ids looked up after merge_shards
-PAR_SHARDS, ROUTER_SHARDS, MERGE_CHUNK, REQUEST = 4, 4, 4096, 4
+# phase 7: blocks of the parallel build and shards of the router, the host
+# path's merge cross searches' batch (7a, 7c; 16,384 lanes: a merge level's
+# host iterations fall with the batch, 4x fewer than at the wave's width of
+# 4,096 and 32x fewer than at the reference's default 512; the mesh path of
+# 8c searches each side in one batch), queries per router request (a
+# user's interests, as the serving launcher sends them), the router's draws,
+# and the live ids looked up after merge_shards
+PAR_SHARDS, ROUTER_SHARDS, MERGE_CHUNK, REQUEST = 4, 4, 16384, 4
 ROUTER_SEED, LOOKUP_SEED, LOOKUPS = 43, 47, 8192
 FP32_KERNELS = ("gather_distance", "fused_expand", "pairwise_distance")
+# phase 8: ranks of the process group on the one card, queries per search
+# wave of the sharded search
+MESH_RANKS, MESH_WAVE = 4, 64
+# lanes per slice of the plain expansion where a batch is larger
+PLAIN_LANES = 65536
 
 # the kernels, the CUDA sources that replace the TPU kernels, and the
 # pallas_call sites with the storage type each form takes
@@ -166,6 +201,9 @@ KERNELS = {
     "fused_expand.bf16": (_EXPAND, "src/repro/kernels/expand.py:412 (bf16 table, x_eng :367)"),
     "fused_expand.int8": (_EXPAND, "src/repro/kernels/expand.py:412 (int8 table + gathered scale, :368, :396-398)"),
     "pairwise_distance": ("src/repro_torch/csrc/distance.cu", "src/repro/kernels/distance.py:223 (fp32)"),
+    "pairwise_distance.bf16": ("src/repro_torch/csrc/distance_bf16.cu",
+                               "src/repro/kernels/distance.py:223 (bf16 operands, widened in-kernel "
+                               ":51-52, :81-82, :107-108)"),
 }
 
 
@@ -217,7 +255,8 @@ def main() -> int:
     try:
         for phase in (smoke.build_kernels, smoke.phase_kernels, smoke.phase_build_parity,
                       smoke.phase_full, smoke.phase_compressed, smoke.phase_serving,
-                      smoke.phase_parallel, smoke.phase_router, smoke.phase_merge_shards):
+                      smoke.phase_parallel, smoke.phase_router, smoke.phase_merge_shards,
+                      smoke.phase_mesh):
             phase()
             print(f"  [{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except PhaseError as exc:
@@ -231,6 +270,123 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def _mesh_rank(rank, world, port, run_dir, device, n_rows):
+    """One rank of phase 8 (spawned; every rank runs the same calls): joins
+    the gloo group, makes phase 4's rows on the card from the launcher's
+    seed, and runs (a) the sharded build, (b) the sharded search and (c)
+    ``build_parallel`` on the group, each timed between barriers with the
+    launch counts zeroed just before it.  Rank 0 writes what the parent
+    checks to ``run_dir/mesh.pt``.  ``device``/``n_rows`` are the card and
+    phase 4's row count (a CPU rehearsal passes "cpu" and fewer rows)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    from repro_torch.configs import knn_lgd
+    from repro_torch.core import construct, distributed
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.graph import graph_invariants_ok
+    from repro_torch.kernels import ops
+    from repro_torch.launch import build_graph, mesh
+    from repro_torch.obs import InMemoryTracker
+
+    run_dir = Path(run_dir)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    grp = mesh.init_group(rank, world, "gloo", port, timeout_s=900)
+    x = build_graph.make_data(n_rows, knn_lgd.D, "l2", dev)
+    q = torch.load(run_dir / "queries.pt").to(dev)
+    n = x.shape[0]
+    cfg = knn_lgd.full_config()
+
+    def timed(fn):
+        dist.barrier(grp)
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        dist.barrier(grp)
+        return out, time.perf_counter() - t0
+
+    def gathered(obj):
+        objs = [None] * world
+        dist.all_gather_object(objs, obj, group=grp)
+        return objs
+
+    def valid(g):
+        return all(bool(v.all()) for v in graph_invariants_ok(g).values())
+
+    # (a) per-shard exact seed graphs, then the shard step in lockstep waves
+    def sharded_build():
+        g, xs = distributed.init_sharded_state(grp, x, cfg, device=dev)
+        n_seed = g.n_valid
+        step = distributed.make_distributed_build_step(grp, cfg)
+        draws, pos, comps, edges, waves = TorchDraws(build_graph.BUILD_SEED), n_seed, 0, 0, 0
+        while pos < xs.shape[0]:
+            nr = min(cfg.wave, xs.shape[0] - pos)
+            draws, sub = draws.split()
+            g, c, e = step(g, xs, pos, nr, sub)
+            comps, edges, pos, waves = comps + c, edges + e, pos + nr, waves + 1
+        return g, xs, comps + world * (n_seed * (n_seed - 1) // 2), edges, waves
+
+    ops.reset_launch_counts()
+    (g, xs, comps, edges, waves), t = timed(sharded_build)
+    out = {"x_sum": float(x.double().sum())}
+    out["build"] = dict(seconds=t, waves=waves, comps=comps, edges=edges,
+                        launches=gathered(ops.launch_counts()), n_valid=gathered(g.n_valid),
+                        invariants_ok=gathered(valid(g)))
+
+    # (b) the scatter-gather search in waves, then with shard 0 blanked
+    search = distributed.make_distributed_search(grp, cfg.search_config())
+
+    def serve(graph):
+        ids, lat = [], []
+        for w in range(0, q.shape[0], MESH_WAVE):
+            sync()
+            t0 = time.perf_counter()
+            i, _ = search(graph, xs, q[w:w + MESH_WAVE], TorchDraws(SEARCH_SEED).fold_in(w))
+            sync()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            ids.append(i)
+        return torch.cat(ids), lat
+
+    ops.reset_launch_counts()
+    ids, lat = serve(g)
+    counts = gathered(ops.launch_counts())
+    blanked = g._replace(alive=torch.zeros_like(g.alive)) if rank == 0 else g
+    blank_ids, _ = serve(blanked)
+    out["search"] = dict(ids=ids.cpu(), blank_ids=blank_ids.cpu(), latency_ms=lat, launches=counts)
+    del g, xs, blanked
+
+    # (c) build_parallel on the group
+    ops.reset_launch_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    trk = InMemoryTracker()
+    (gp, st), t = timed(lambda: construct.build_parallel(
+        x, cfg, TorchDraws(build_graph.BUILD_SEED), shards=world, refine_rounds=1,
+        mesh=grp, tracker=trk, device=dev))
+    spans = {}
+    for e in trk.span_events:
+        spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur_s"]
+    rows = torch.arange(0, n, max(1, n // 10_000), device=dev)[:10_000]
+    mine = gp.nbr_ids[rows].cpu()
+    sums = gathered([float(getattr(gp, f).double().sum()) for f in ("nbr_ids", "nbr_dist", "nbr_lam")])
+    out["parallel"] = dict(
+        seconds=t, spans=spans, comps=int(st.n_comps), waves=st.n_waves,
+        launches=gathered(ops.launch_counts()), invariants_ok=gathered(valid(gp)),
+        peak=gathered(torch.cuda.max_memory_allocated() if on_card else 0), nbr_ids_rows=mine,
+        same_on_every_rank=all(s == sums[0] for s in sums))
+    if rank == 0:
+        torch.save(out, run_dir / "mesh.pt")
+    dist.barrier(grp)
+    mesh.close_group()
 
 
 class Smoke:
@@ -310,13 +466,22 @@ class Smoke:
                         self.check_expand(x, q, sq, metric, integer, B=33, C=23, e=16, H=64, P=4,
                                           steps=3, enc=enc, precision=precision)
                     for xn in ((None, sq) if metric == "l2" else (None,)):
+                        xn = None if xn is None else xn[:130]
                         self.compare("pairwise_distance",
-                                     distance.pairwise_distance(q, x[:130], metric, x_sq_norms=None if xn is None else xn[:130]),
-                                     ref.pairwise_distance(q, x[:130], metric, x_sq_norms=None if xn is None else xn[:130]),
+                                     distance.pairwise_distance(q, x[:130], metric, x_sq_norms=xn),
+                                     ref.pairwise_distance(q, x[:130], metric, x_sq_norms=xn),
                                      exact=integer and metric in EXACT_METRICS,
                                      what=what + (" cached" if xn is not None else ""))
-        print(f"phase 2a: small shapes, five metrics, fp32/bf16/int8 tables: kernels agree "
-              f"with plain ({time.perf_counter() - t0:.3f} s)", flush=True)
+                        # bf16 operands (cosine normalizes in fp32: the fp32 kernel)
+                        qb, xb = q.bfloat16(), x[:130].bfloat16()
+                        self.compare("pairwise_distance" if metric == "cosine" else "pairwise_distance.bf16",
+                                     distance.pairwise_distance(qb, xb, metric, x_sq_norms=xn),
+                                     ref.pairwise_distance(qb, xb, metric, x_sq_norms=xn),
+                                     exact=integer and metric in EXACT_METRICS,
+                                     what=what + " bf16 operands" + (" cached" if xn is not None else ""))
+        print(f"phase 2a: small shapes, five metrics, fp32/bf16/int8 tables, fp32 and bf16 "
+              f"pairwise operands: kernels agree with plain ({time.perf_counter() - t0:.3f} s)",
+              flush=True)
 
         # main-path shapes (l2, d=128): seed gather B=4096 C=8, expansion
         # B=4096 C=60 e=40 H=2048 P=8, intra-wave tile 4096², brute tile
@@ -344,8 +509,15 @@ class Smoke:
             got = distance.pairwise_distance(xq, xq, "l2", x_sq_norms=sqq)
             self.compare("pairwise_distance", got, ref.pairwise_distance(xq, xq, "l2", x_sq_norms=sqq),
                          exact=integer, what=f"intra-wave tile {'int' if integer else 'clustered'}")
+            xqb = xq.bfloat16()
+            sqb = squared_norms(xqb)
+            got = distance.pairwise_distance(xqb, xqb, "l2", x_sq_norms=sqb)
+            self.compare("pairwise_distance.bf16", got,
+                         ref.pairwise_distance(xqb, xqb, "l2", x_sq_norms=sqb), exact=integer,
+                         what=f"intra-wave tile, bf16 operands {'int' if integer else 'clustered'}")
             if not integer:
                 self.time_pairwise(xq, xq, sqq, prefix="")
+                self.time_pairwise(xqb, xqb, sqb, prefix="")
                 self.time_pairwise(x[::100][:10_000].contiguous(), x[:8192], sq[:8192])
         self.xf = xf
         print("phase 2b: main-path shapes: kernels agree with plain", flush=True)
@@ -371,10 +543,11 @@ class Smoke:
         self.merge_shapes(xi)
 
     def merge_shapes(self, xi):
-        """The second-hop gather of ``ops.merge_proposals``: one row chunk
-        (``MERGE_PROPOSAL_ROWS`` queries) x C = HOP_TOP * k = 400 ids over
-        the 10^6 rows, d=128, 5% of the ids -1; timed on clustered rows over
-        cold sets."""
+        """The merge's shapes over the 10^6 rows, d=128: the second-hop
+        gather of ``ops.merge_proposals`` (one row chunk,
+        ``MERGE_PROPOSAL_ROWS`` queries x C = HOP_TOP * k = 400 ids, 5% of
+        them -1) and the cross searches' seed gather and expansion
+        (``cross_search_shapes``); timed on clustered rows."""
         torch = self.torch
         from repro_torch.configs import knn_lgd
         from repro_torch.core.graph import squared_norms
@@ -399,8 +572,50 @@ class Smoke:
             if not integer:
                 self.time_gather(x, sets, "fp32", prefix="merge_")
             del sets
-        print(f"phase 2d: the merge's second-hop gather (B={B} C={C} d=128): kernel agrees "
-              "with plain", flush=True)
+            self.cross_search_shapes(x, sq, integer)
+        print(f"phase 2d: the merge's second-hop gather (B={B} C={C} d=128) and its cross "
+              f"searches' seed gather and expansion (B = {MERGE_CHUNK}, the host path's chunk; "
+              f"{knn_lgd.N_ROWS // MESH_RANKS} and {knn_lgd.N_ROWS // 2}, the mesh path's sides): "
+              "kernels agree with plain", flush=True)
+
+    def cross_search_shapes(self, x, sq, integer):
+        """The merge levels' cross searches at phase 4's 10^6 rows: the host
+        path's chunk of ``MERGE_CHUNK`` lanes (phases 7a, 7c) and the mesh
+        path's whole sides, n/4 lanes at level 0 and n/2 at level 1 (phase
+        8c): the seed gather of n_seeds random entry points and the
+        expansion at the build's search shape (C = k + R, e = beam, H,
+        P = hash_probes), fp32; timed on clustered rows, the chunk's gather
+        over cold sets, the sides' over four (each reads far more rows than
+        the L2 holds)."""
+        torch = self.torch
+        from repro_torch.configs import knn_lgd
+        from repro_torch.kernels import ref
+
+        cfg = knn_lgd.full_config()
+        scfg = cfg.search_config()
+        C = cfg.k + (cfg.rev_cap or 2 * cfg.k)  # a row's forward and reverse lists
+        p, n = scfg.n_seeds, x.shape[0]
+        for B, prefix in ((MERGE_CHUNK, "merge_chunk_"),
+                          (knn_lgd.N_ROWS // MESH_RANKS, "merge_mesh0_"),
+                          (knn_lgd.N_ROWS // 2, "merge_mesh1_")):
+            sets = []
+            for k in range(1 if integer else (self.bench.COLD_SETS if B <= MERGE_CHUNK else 4) + 2):
+                g = self.gen(80 + k)
+                sets.append((x[torch.randint(0, n, (B,), generator=g, device=self.dev)],
+                             torch.randint(0, n, (B, p), generator=g, device=self.dev).int()))
+            q, idx = sets[0]
+            what = f"cross search B={B} {'int' if integer else 'clustered'}"
+            self.compare("gather_distance", self.ops.gather_distance(q, x, idx, "l2", sq_norms=sq),
+                         ref.gather_distance(q, x, idx, "l2", sq_norms=sq), exact=integer,
+                         what=f"{what} seed gather C={p}")
+            if not integer:
+                self.time_gather(x, sets, "fp32", prefix=prefix + "seed_")
+            del sets
+            self.check_expand(x, q, sq, "l2", integer, B=B, C=C, e=scfg.beam, H=scfg.hash_slots,
+                              P=scfg.hash_probes, steps=1, timed=not integer, enc=None,
+                              precision="fp32", prefix=prefix)
+            del q, idx
+            torch.cuda.empty_cache()
 
     def serving_shapes(self, xi):
         """The serving searches' shapes: the coarse seed gather (C=44) and
@@ -421,6 +636,8 @@ class Smoke:
                 q = x[torch.randint(0, n, (B,), generator=g, device=self.dev)]
                 idx = torch.randint(-1, n, (B, 44), generator=g, device=self.dev).int()
                 timed = B == 64 and not integer
+                # the router's request (B=4): the expansion timed at fp32
+                router = B == REQUEST and not integer
                 for precision in ("fp32",) + VARIANTS:
                     enc = encode_dataset(x, precision)
                     what = f"serving B={B} C=44 {precision} {'int' if integer else 'clustered'}"
@@ -436,6 +653,12 @@ class Smoke:
                     self.check_expand(x, q, sq, "l2", integer, B=B, C=60, e=64, H=H, P=8,
                                       steps=2, timed=timed, enc=enc, precision=precision,
                                       prefix="serve_")
+                    if router and precision == "fp32":
+                        self.check_expand(x, q, sq, "l2", integer, B=B, C=60, e=64, H=H, P=8,
+                                          steps=1, timed=True, enc=enc, precision=precision,
+                                          prefix="router_")
+            if not integer:
+                self.router_seed_gather(x, sq)
             # the recall audit's brute tile (the reservoir's 96 queries
             # against 8192 rows, norms not cached), nearest_landmark's chunk
             # (4096 rows against 4000 landmarks, uncached) and the router's
@@ -454,6 +677,28 @@ class Smoke:
         print(f"phase 2c: serving shapes (B in 1, 4, 37, 64; gather C=44; expand C=60 e=64 H={H}; "
               f"pairwise 96x8192, 4096x4000 and {REQUEST}x8192 uncached): kernels agree with plain",
               flush=True)
+
+    def router_seed_gather(self, x, sq):
+        """The seed gather of one router request as ``ShardedIndex.retrieve``
+        runs it: each shard's search scores B=4 queries' p=8 random entry
+        points over its block of the rows (n / 4), fp32; held against plain
+        and timed over cold sets."""
+        torch = self.torch
+        from repro_torch.configs import knn_lgd
+        from repro_torch.kernels import ref
+
+        shard = x[: x.shape[0] // ROUTER_SHARDS]
+        sq = sq[: shard.shape[0]]
+        p = knn_lgd.full_config().n_seeds
+        g = self.gen(90)
+        sets = [(x[torch.randint(0, x.shape[0], (REQUEST,), generator=g, device=self.dev)],
+                 torch.randint(0, shard.shape[0], (REQUEST, p), generator=g, device=self.dev).int())
+                for _ in range(self.bench.COLD_SETS + 2)]
+        q, idx = sets[0]
+        self.compare("gather_distance", self.ops.gather_distance(q, shard, idx, "l2", sq_norms=sq),
+                     ref.gather_distance(q, shard, idx, "l2", sq_norms=sq), exact=False,
+                     what=f"router seed gather B={REQUEST} C={p}")
+        self.time_gather(shard, sets, "fp32", prefix="router_")
 
     def time_gather(self, x, sets, precision, prefix=""):
         """Time the gather over the query and id ``sets`` of one shape
@@ -474,38 +719,58 @@ class Smoke:
               f"({m['bound_by']})", flush=True)
 
     def time_pairwise(self, q, x, xn, *, prefix=None):
-        """Time the pairwise kernel, its plain version, ``torch.mm`` and
-        ``torch.cdist`` at one shape; with a ``prefix``, into the record's
-        keys under it."""
+        """Time the pairwise kernel (its bf16-operand form for bf16 rows),
+        its plain version, ``torch.mm`` and ``torch.cdist`` (on the fp32
+        rows, widened outside the timing) at one shape; with a ``prefix``,
+        into the record's keys under it."""
         torch = self.torch
         from repro_torch.kernels import distance, ref
 
         m, d = q.shape
         n = x.shape[0]
+        name = "pairwise_distance.bf16" if q.dtype == torch.bfloat16 else "pairwise_distance"
         ms = self.profile.time_ms([lambda: distance.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
         plain_ms = self.profile.time_ms([lambda: ref.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
         # the product alone in IEEE fp32 (TF32 is off), and the library's
         # own distance, which takes square roots and reduces its own norms
-        mm_ms = self.profile.time_ms([lambda: torch.mm(q, x.T)] * 12)
-        cdist_ms = self.profile.time_ms([lambda: torch.cdist(q, x)] * 12)
-        # each input read once (the x norms only where cached), the output
-        # written once
-        nbytes = 4 * (m * d + n * d + (0 if xn is None else n) + m * n)
-        b, how = self.profile.bound_ms(nbytes, 2 * m * n * d)
-        print(f"pairwise_distance m={m} n={n} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+        qf, xf = q.float(), x.float()
+        mm_ms = self.profile.time_ms([lambda: torch.mm(qf, xf.T)] * 12)
+        cdist_ms = self.profile.time_ms([lambda: torch.cdist(qf, xf)] * 12)
+        # each input read once in its storage type (the x norms only where
+        # cached), the output written once
+        nbytes = q.element_size() * (m * d + n * d) + 4 * ((0 if xn is None else n) + m * n)
+        b, how = self.profile.bound_ms(nbytes, 2 * m * n * d,
+                                       "bf16" if name.endswith(".bf16") else "fp32")
+        print(f"{name} m={m} n={n} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"torch.mm {mm_ms:.6f} ms, torch.cdist {cdist_ms:.6f} ms, bound {b:.6f} ms ({how})",
               flush=True)
         if prefix is not None:
             shape = f"m={m} n={n} d={d} {'cached' if xn is not None else 'uncached'} l2"
             rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how, library_ms=mm_ms,
                        cdist_ms=cdist_ms, shape=shape)
-            self.rec["pairwise_distance"].update({prefix + k: v for k, v in rec.items()})
+            self.rec[name].update({prefix + k: v for k, v in rec.items()})
+
+    def plain_expand(self, q, x, *lanes, **kw):
+        """``expand.expand_reference(q, x, cands, beam..., hash...)`` in
+        lane slices of ``PLAIN_LANES``: a lane's step reads and writes only
+        its own rows, so the slices give the whole batch's result, and the
+        plain version's (B, C, d) gather stays a few GB at the mesh's
+        500,000 lanes."""
+        torch = self.torch
+        from repro_torch.kernels import expand
+
+        B = q.shape[0]
+        if B <= PLAIN_LANES:
+            return expand.expand_reference(q, x, *lanes, **kw)
+        parts = [expand.expand_reference(q[lo:lo + PLAIN_LANES], x,
+                                         *(t[lo:lo + PLAIN_LANES] for t in lanes), **kw)
+                 for lo in range(0, B, PLAIN_LANES)]
+        return tuple(torch.cat(ts) for ts in zip(*parts))
 
     def expand_state(self, x, q, sq, metric, B, C, e, H, P, warm, enc, precision):
         """A mid-search state: ``warm`` plain expansion steps from random
         candidates, then candidates half already visited, some -1."""
         torch = self.torch
-        from repro_torch.kernels import expand
 
         n = x.shape[0]
         g = self.gen(11)
@@ -523,14 +788,13 @@ class Smoke:
             return torch.where(torch.rand((B, C), generator=g, device=self.dev) < 0.15, -1, c)
 
         for _ in range(warm):
-            beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, _ = expand.expand_reference(
+            beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, _ = self.plain_expand(
                 q, x, cands(), beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
                 metric=metric, probes=P, sq_norms=sq, enc=enc, precision=precision)
         return cands(), beam_ids, beam_dist, beam_exp, vis_ids, vis_dist
 
     def check_expand(self, x, q, sq, metric, integer, *, B, C, e, H, P, steps, enc, precision,
                      timed=False, prefix=""):
-        from repro_torch.kernels import expand
 
         name = kernel_name("fused_expand", precision)
         exact = integer and exact_for(metric, precision)
@@ -543,7 +807,7 @@ class Smoke:
             kw = dict(metric=metric, sq_norms=sq, enc=enc, precision=precision)
             got = self.ops.expand_step(q, x, cands, bi, bd, be, vi.clone(), vd.clone(),
                                        hash_probes=P, **kw)
-            want = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(),
+            want = self.plain_expand(q, x, cands, bi, bd, be, vi.clone(), vd.clone(),
                                            probes=P, **kw)
             what = (f"{metric} B={B} C={C} e={e} H={H} step {step} "
                     f"{'int' if integer else 'float'}")
@@ -561,21 +825,25 @@ class Smoke:
             state = (cands.roll(1, dims=1),) + tuple(want[:5])
 
     def time_expand(self, x, q, sq, state, P, enc, precision, prefix=""):
-        from repro_torch.kernels import expand
 
         name = kernel_name("fused_expand", precision)
         cands, bi, bd, be, vi, vd = state
         kw = dict(metric="l2", sq_norms=sq, enc=enc, precision=precision)
-        reps = 12
-        # every call gets its own copy of the hash it updates in place
+        # every call gets its own copy of the hash it updates in place: 12
+        # calls (2 warm-up), fewer where the copies would pass 8 GB (the
+        # mesh's sides, 4-8 GB a hash), never under 3
+        reps = max(3, min(12, int(8e9 // (vi.numel() * 8))))
         hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
         ms = self.profile.time_ms([lambda h=h: self.ops.expand_step(q, x, cands, bi, bd, be, *h,
                                                                   hash_probes=P, **kw)
-                                 for h in hashes])
+                                 for h in hashes], warmup=min(2, reps - 2))
+        del hashes
         hashes = [(vi.clone(), vd.clone()) for _ in range(reps)]
-        plain_ms = self.profile.time_ms([lambda h=h: expand.expand_reference(
-            q, x, cands, bi, bd, be, *h, probes=P, **kw) for h in hashes])
-        out = expand.expand_reference(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), probes=P, **kw)
+        plain_ms = self.profile.time_ms([lambda h=h: self.plain_expand(
+            q, x, cands, bi, bd, be, *h, probes=P, **kw) for h in hashes],
+            warmup=min(2, reps - 2))
+        del hashes
+        out = self.plain_expand(q, x, cands, bi, bd, be, vi.clone(), vd.clone(), probes=P, **kw)
         B, C = cands.shape
         e, d = bi.shape[1], x.shape[1]
         fresh = int(out[5].sum())
@@ -617,8 +885,20 @@ class Smoke:
 
         n, d = 20_000, 32
         x = self.data(n, d, 12, integer=True)
-        for precision in ("fp32",) + VARIANTS:
-            cfg = dataclasses.replace(knn_lgd.full_config(), wave=1024, precision=precision)
+        base = dataclasses.replace(knn_lgd.full_config(), wave=1024)
+        # (what, config, kernels its build must launch, rows): the three
+        # engine precisions, the build without the intra-wave tile (W=64, on
+        # the first INTRA_OFF_ROWS rows: its 152 waves keep the run inside
+        # its time aim), and the dataset stored bf16 (its tables, tile and
+        # seed graph through bf16 kernels)
+        builds = [(f"precision={p}", dataclasses.replace(base, precision=p),
+                   (kernel_name("gather_distance", p), kernel_name("fused_expand", p)), x)
+                  for p in ("fp32",) + VARIANTS]
+        builds += [("intra_wave=False", dataclasses.replace(base, wave=64, intra_wave=False),
+                    FP32_KERNELS, x[:INTRA_OFF_ROWS]),
+                   ("data_bf16", dataclasses.replace(base, data_bf16=True),
+                    ("gather_distance.bf16", "fused_expand.bf16", "pairwise_distance.bf16"), x)]
+        for what, cfg, kernels, rows in builds:
 
             def seed_fn(wave, pos, W, n_valid):
                 g = torch.Generator().manual_seed(1000 + wave)
@@ -628,30 +908,29 @@ class Smoke:
             def run():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                g, st = construct.build(x, cfg, seed_fn=seed_fn, device=self.dev)
+                g, st = construct.build(rows, cfg, seed_fn=seed_fn, device=self.dev)
                 torch.cuda.synchronize()
                 return g, st, time.perf_counter() - t0
 
             self.ops.reset_launch_counts()
             g_k, st_k, t_k = run()
             counts = self.ops.launch_counts()
-            for kernel in ("gather_distance", "fused_expand"):
-                name = kernel_name(kernel, precision)
-                check(counts[name] > 0, f"n={n} {precision} build launched no {name}")
+            for name in kernels:
+                check(counts[name] > 0, f"n={n} {what} build launched no {name}")
             with self.plain_versions():
                 g_p, st_p, t_p = run()
-            check(self.ops.launch_counts() == counts, f"n={n} {precision} plain build launched a kernel")
+            check(self.ops.launch_counts() == counts, f"n={n} {what} plain build launched a kernel")
             a, b = convert.graph_to_numpy(g_k), convert.graph_to_numpy(g_p)
             for name in a:
                 check((a[name] == b[name]).all(),
-                      f"n={n} {precision} build: field {name} differs, kernels vs plain")
+                      f"n={n} {what} build: field {name} differs, kernels vs plain")
             for name in ("n_comps", "n_inserted_edges"):
                 check(int(getattr(st_k, name)) == int(getattr(st_p, name)),
-                      f"n={n} {precision} build: {name} differs, kernels vs plain")
-            print(f"phase 3: n={n} d={d} integer build, W={cfg.wave}, precision={precision}: graph "
+                      f"n={n} {what} build: {name} differs, kernels vs plain")
+            print(f"phase 3: n={rows.shape[0]} d={d} integer build, W={cfg.wave}, {what}: graph "
                   f"arrays, n_comps={int(st_k.n_comps)} and edges identical, kernels vs plain "
                   f"(kernels {t_k:.3f} s, plain {t_p:.3f} s)", flush=True)
-            if precision == "fp32":
+            if what == "precision=fp32":
                 g32, cfg32 = g_k, cfg
         self.churn_parity(g32, x, cfg32)
         self.divide_parity(x, cfg32)
@@ -804,10 +1083,12 @@ class Smoke:
         torch.cuda.synchronize()
         return g, stats, time.perf_counter() - t0
 
-    def counted_build(self, cfg, kernels):
+    def counted_build(self, cfg, kernels, record=None):
         """The main path at ``cfg``: launch counts zeroed just before the
         build and read just after; every kernel in ``kernels`` must have
-        launched.  Returns (graph, stats, seconds, peak bytes)."""
+        launched, and those in ``record`` (default: all of them) keep this
+        build's count as their main-path launches.  Returns (graph, stats,
+        seconds, peak bytes)."""
         torch = self.torch
 
         torch.cuda.reset_peak_memory_stats()
@@ -815,10 +1096,12 @@ class Smoke:
         g, stats, t_build = self.build_full(cfg)
         peak = torch.cuda.max_memory_allocated()
         counts = self.ops.launch_counts()
-        print(f"launches on the {cfg.precision} main path: {json.dumps(counts)}", flush=True)
+        what = cfg.precision + (" data_bf16" if cfg.data_bf16 else "")
+        print(f"launches on the {what} main path: {json.dumps(counts)}", flush=True)
         for name in kernels:
+            check(counts[name] > 0, f"kernel {name} was not launched on the {what} main path")
+        for name in kernels if record is None else record:
             self.launches[name] = counts[name]
-            check(counts[name] > 0, f"kernel {name} was not launched on the {cfg.precision} main path")
         return g, stats, t_build, peak
 
     def check_graph(self, g, what):
@@ -895,7 +1178,35 @@ class Smoke:
             check(recall >= self.recall32 - 0.05,
                   f"{precision} recall@10 {recall:.4f} < fp32 {self.recall32:.4f} - 0.05")
             del g
+        self.phase_bf16_data()
         self.phase_pq_search()
+
+    def phase_bf16_data(self):
+        """The knn-lgd build over phase 4's rows stored bf16 (``data_bf16``,
+        the reference's ``launch/perf.py`` bf16-data variant): every
+        distance widens bf16 rows and accumulates in fp32, through the bf16
+        table kernels and the bf16-operand pairwise kernel."""
+        torch = self.torch
+        from repro_torch.configs import knn_lgd
+        from repro_torch.core import brute, construct
+
+        n = self.xf.shape[0]
+        cfg = dataclasses.replace(knn_lgd.full_config(), data_bf16=True)
+        g, stats, t_build, peak = self.counted_build(
+            cfg, ("gather_distance.bf16", "fused_expand.bf16", "pairwise_distance.bf16"),
+            record=("pairwise_distance.bf16",))
+        recall = brute.recall_at_k(g.nbr_ids[self.rows], self.truth, 10)
+        same = float((g.nbr_ids == self.g32.nbr_ids).float().mean())
+        print(f"phase 5: knn-lgd build n={n} d=128 W={cfg.wave}, rows stored bf16 (data_bf16): "
+              f"{t_build:.3f} s, {n / t_build:.1f} rows/s, scanning rate "
+              f"{construct.scanning_rate(stats, n):.6f}, peak memory {peak / 2**30:.3f} GiB, "
+              f"recall@10 over {self.rows.numel()} strided rows = {recall:.4f} (fp32 "
+              f"{self.recall32:.4f}), {same:.4f} of neighbour ids equal to the fp32 graph",
+              flush=True)
+        self.check_graph(g, "data_bf16 build")
+        check(recall >= self.recall32 - 0.05,
+              f"data_bf16 recall@10 {recall:.4f} < fp32 {self.recall32:.4f} - 0.05")
+        del g
 
     def phase_pq_search(self):
         """Held-out queries on phase 4's graph: fp32 against pq at three
@@ -918,6 +1229,7 @@ class Smoke:
         torch.cuda.synchronize()
         t_enc = time.perf_counter() - t0
         truth, _ = brute.brute_force_knn(x, q, scfg.k, "l2", sq_norms=g.sq_norms, device=self.dev)
+        self.held_q, self.held_truth = q, truth
 
         def run(cfg):
             torch.cuda.synchronize()
@@ -1266,6 +1578,7 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         self.ops.reset_launch_counts()
         g, st, t, spans, sort_s, n_sorts = self.parallel_build()
+        self.t_par = t
         peak = torch.cuda.max_memory_allocated()
         self.path_counts("parallel", "the parallel build")
         recall = brute.recall_at_k(g.nbr_ids[self.rows], self.truth, 10)
@@ -1281,6 +1594,7 @@ class Smoke:
             flush=True)
         print(f"phase 7a: recall@10 over {self.rows.numel()} strided rows = {recall:.4f} "
               f"(phase 4's sequential build {self.recall32:.4f})", flush=True)
+        self.recall_par = recall
         self.check_graph(g, "parallel build")
         lam, _ = nndescent.recompute_lambda(g.nbr_ids, g.nbr_dist, x, "l2")
         check(torch.equal(lam, g.nbr_lam), "parallel build: nbr_lam is not the canonical λ of "
@@ -1398,7 +1712,7 @@ class Smoke:
 
         round_(0, False)  # the warm-up round, outside the window
         trk.events.clear()
-        for r in range(1, SERVE_ROUNDS + 1):
+        for r in range(1, ROUTER_ROUNDS + 1):
             round_(r, True)
         counts_path = "the router (build, churn, graph and brute retrieval)"
         self.path_counts("router", counts_path)
@@ -1408,12 +1722,12 @@ class Smoke:
         for e in trk.span_events:
             spans.setdefault(e["name"], []).append(e["dur_s"])
         print(f"phase 7b: router of {ROUTER_SHARDS} shards over n={n}: build {t_build:.3f} s; "
-              f"{len(lat)} requests of {REQUEST} queries ({served} queries) in {SERVE_ROUNDS} "
+              f"{len(lat)} requests of {REQUEST} queries ({served} queries) in {ROUTER_ROUNDS} "
               f"rounds of {SERVE_BURST}: p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
               f"{np.percentile(lat_ms, 99):.3f} ms per request, {served / lat_ms.sum() * 1e3:.1f} "
               f"QPS (queries over the summed request latencies), comps/query "
               f"{comps / served:.1f} (all shards), recall@10 {np.mean(recall):.4f} against brute "
-              f"force over the live catalog; {SERVE_ROUNDS // CHURN_EVERY + 1} churn events of "
+              f"force over the live catalog; {ROUTER_ROUNDS // CHURN_EVERY + 1} churn events of "
               f"{CHURN} in {t_churn:.3f} s (phase 6's single index: p50 "
               f"{self.serve_rep['p50_latency_ms']:.3f} ms, p99 "
               f"{self.serve_rep['p99_latency_ms']:.3f} ms, {self.serve_rep['qps']:.1f} QPS)",
@@ -1577,6 +1891,90 @@ class Smoke:
               f"{graph_recall:.4f}", flush=True)
         check(served_dead + dead_c == 0,
               f"the merged index served {served_dead + dead_c} removed global ids")
+
+    # ---------------------------------------------------------------- phase 8
+    def phase_mesh(self):
+        """8: the device mesh at full size, a gloo group of ``MESH_RANKS``
+        ranks on the one card over phase 4's rows (``_mesh_rank``): (a) the
+        per-shard exact seed graphs and the shard step in lockstep waves,
+        (b) the scatter-gather search of phase 5's held-out queries, then
+        with shard 0 blanked, (c) ``build_parallel`` on the group.  A rank
+        that fails fails the run."""
+        import numpy as np
+
+        torch = self.torch
+        import torch.multiprocessing as mp
+
+        from repro_torch.configs import knn_lgd
+        from repro_torch.core import brute
+        from repro_torch.launch.mesh import free_port
+
+        run_dir = ROOT / "build" / "mesh"
+        run_dir.mkdir(parents=True, exist_ok=True)
+        for old in run_dir.glob("*.pt"):
+            old.unlink()
+        torch.save(self.held_q.cpu(), run_dir / "queries.pt")
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+        print(f"phase 8: backend gloo: {MESH_RANKS} ranks share the one card, and nccl needs a "
+              "card per rank; gloo stages each collective's tensors through the host", flush=True)
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_rank, args=(MESH_RANKS, free_port(), str(run_dir), self.dev.type,
+                                   self.xf.shape[0]), nprocs=MESH_RANKS, join=True)
+        t_world = time.perf_counter() - t0
+        res = torch.load(run_dir / "mesh.pt")
+        n, n_local = self.xf.shape[0], self.xf.shape[0] // MESH_RANKS
+        check(res["x_sum"] == float(self.xf.double().sum()),
+              "phase 8: the ranks' rows differ from phase 4's")
+
+        def launches(path, kernels):
+            counts = {k: sum(c[k] for c in res[path]["launches"]) for k in res[path]["launches"][0]}
+            print(f"launches on the mesh {path} (all ranks): {json.dumps(counts)}", flush=True)
+            for name in kernels:
+                check(counts[name] > 0, f"kernel {name} was not launched on the mesh {path}")
+            self.path_launches[f"mesh_{path}"] = counts
+
+        b = res["build"]
+        launches("build", FP32_KERNELS)
+        check(b["n_valid"] == [n_local] * MESH_RANKS and all(b["invariants_ok"]),
+              f"phase 8a: shard graphs incomplete or invalid: {b['n_valid']}")
+        print(f"phase 8a: {MESH_RANKS} shards of {n_local} rows, exact seed graphs then lockstep "
+              f"waves of W={knn_lgd.full_config().wave} per shard: {b['seconds']:.3f} s, "
+              f"{b['waves']} waves, all-reduced n_comps {b['comps']}, edges {b['edges']}",
+              flush=True)
+
+        s_ = res["search"]
+        launches("search", ("gather_distance", "fused_expand"))
+        ids, blank = s_["ids"].to(self.dev), s_["blank_ids"].to(self.dev)
+        truth = self.held_truth
+        recall = brute.recall_at_k(ids, truth, 10)
+        recall_b = brute.recall_at_k(blank, truth, 10)
+        served0 = int(((blank >= 0) & (blank < n_local)).sum())
+        lat = np.asarray(s_["latency_ms"])
+        print(f"phase 8b: scatter-gather search of {ids.shape[0]} held-out queries in waves of "
+              f"{MESH_WAVE}: recall@10 {recall:.4f} against brute force over all {n} rows; "
+              f"latency per wave p50 {np.percentile(lat, 50):.3f} ms, mean {lat.mean():.3f} ms, "
+              f"p99 {np.percentile(lat, 99):.3f} ms", flush=True)
+        print(f"phase 8b: shard 0 blanked: {served0} of its rows served, recall@10 "
+              f"{recall_b:.4f} (drop {recall - recall_b:.4f})", flush=True)
+        check(served0 == 0, f"phase 8b: the blanked shard served {served0} rows")
+        check(bool((blank >= 0).all()), "phase 8b: the live shards left an answer short")
+
+        p = res["parallel"]
+        launches("parallel", FP32_KERNELS)
+        check(all(p["invariants_ok"]) and p["same_on_every_rank"],
+              "phase 8c: the mesh build_parallel graph is invalid or differs between ranks")
+        recall_p = brute.recall_at_k(p["nbr_ids_rows"].to(self.dev), self.truth, 10)
+        print(f"phase 8c: build_parallel on the group, {MESH_RANKS} shards, one refine round, "
+              f"each side's cross search one batch ({n_local} lanes at level 0, {2 * n_local} at "
+              f"level 1): {p['seconds']:.3f} s (phase 7a's "
+              f"host path {self.t_par:.3f} s), {p['waves']} waves, n_comps {p['comps']}, peak "
+              f"memory per rank {max(p['peak']) / 2**30:.3f} GiB; host seconds by span (rank 0): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in p["spans"].items()), flush=True)
+        print(f"phase 8c: recall@10 over {self.rows.numel()} strided rows = {recall_p:.4f} "
+              f"(phase 7a {self.recall_par:.4f}); the whole world {t_world:.3f} s with its "
+              "start-up", flush=True)
+        check(recall_p >= self.recall_par - 0.02,
+              f"phase 8c: recall@10 {recall_p:.4f} < phase 7a {self.recall_par:.4f} - 0.02")
 
     def kernel_records(self):
         out = []

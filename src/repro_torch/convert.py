@@ -69,26 +69,21 @@ def coarse_to_numpy(c: CoarseLevel) -> dict:
     return out
 
 
-# Reference BuildConfig fields with no counterpart here, and the one value
-# the port accepts for each (engine selection follows the tensor's device,
-# so ``dispatch``/``use_pallas`` carry no meaning and are dropped).
-_FIXED = {"data_bf16": False, "intra_wave": True}
+# Reference BuildConfig fields with no counterpart here: engine selection
+# follows the tensor's device, so ``dispatch``/``use_pallas`` carry no
+# meaning and are dropped.
 _DROPPED = ("dispatch", "use_pallas")
 _FIELDS = frozenset(f.name for f in dataclasses.fields(BuildConfig))
 # every BuildConfig field that either package knows
-CONFIG_KEYS = _FIELDS | set(_FIXED) | set(_DROPPED)
+CONFIG_KEYS = _FIELDS | set(_DROPPED)
 
 
 def build_config_from_dict(d: dict) -> BuildConfig:
     """A reference ``BuildConfig.__dict__`` -> the port's ``BuildConfig``.
 
-    ``precision``, ``rerank_factor`` and the coarse-seeding fields are
-    carried.  Raises for settings the port does not run (bf16 storage, no
-    intra-wave tile) rather than dropping them silently, and for fields
-    neither package knows (``CONFIG_KEYS``)."""
-    for name, want in _FIXED.items():
-        if name in d and d[name] != want:
-            raise ValueError(f"the port runs {name}={want!r} only, got {d[name]!r}")
+    Every field but the engine selection is carried (``intra_wave``,
+    ``data_bf16``, ``precision``, ``rerank_factor``, the coarse-seeding
+    fields); raises for fields neither package knows (``CONFIG_KEYS``)."""
     unknown = set(d) - CONFIG_KEYS
     if unknown:
         raise ValueError(f"unknown BuildConfig fields: {sorted(unknown)}")

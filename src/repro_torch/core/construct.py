@@ -54,6 +54,7 @@ class BuildConfig:
     n_seed_init: int = 256  # |I|, fixed to 256 across the paper
     wave: int = 256  # W — rows inserted per batched round
     lgd: bool = True  # Alg. 3 (True) vs Alg. 2 / OLG (False)
+    intra_wave: bool = True  # wave rows see each other (the W x W tile)
     rev_cap: Optional[int] = None  # reverse ring capacity (default 2k)
     ins_cap_per_q: Optional[int] = None  # rows one query may update (default 3k)
     beam: int = 40
@@ -64,6 +65,7 @@ class BuildConfig:
     # tile of the commit stays fp32
     precision: str = "fp32"  # "fp32" | "bf16" | "int8" | "pq"
     rerank_factor: int = 4  # pq: exact re-rank width = rerank_factor * k
+    data_bf16: bool = False  # store the dataset bf16 (distances accumulate fp32)
     # hierarchical entry-point seeding (core.hierarchy)
     seed_mode: str = "random"  # "random" | "coarse"
     coarse_landmarks: Optional[int] = None  # L; None = ~4·√n
@@ -110,6 +112,15 @@ def scanning_rate(stats: BuildStats, n: int) -> float:
     return int(stats.n_comps) / (n * (n - 1) / 2.0)
 
 
+def stored_data(x: torch.Tensor, cfg: BuildConfig, device) -> torch.Tensor:
+    """The dataset as a build holds it on ``device``: bfloat16 under
+    ``cfg.data_bf16`` or when given bf16 (the reference keeps the dtype it
+    is given, and its configs pair the flag with bf16 rows), else float32.
+    Every distance over bf16 rows widens them and accumulates in fp32."""
+    bf16 = cfg.data_bf16 or x.dtype == torch.bfloat16
+    return x.to(device=device, dtype=torch.bfloat16 if bf16 else torch.float32)
+
+
 def _lookup_D(vis_ids, vis_dist, lane, ids, probes: int) -> torch.Tensor:
     """D(q_lane, ids): the distance if the lane's search computed it, else
     +inf (Rule 1/3).  ids (T, k) -> (T, k)."""
@@ -145,7 +156,7 @@ def commit_wave(
 
     # ---- 1. new-row lists: search results ‖ intra-wave candidates ----------
     new_ids, new_dist = res.ids, res.dists
-    intra = W > 1  # wave rows see each other through the W x W tile
+    intra = cfg.intra_wave and W > 1  # wave rows see each other through the W x W tile
     if intra:
         tile = ops.pairwise_distance(
             xq, xq, cfg.metric, x_sq_norms=xq_sq if cfg.metric == "l2" else None
@@ -261,10 +272,13 @@ def wave_core(
     *,
     coarse: Any = None,
     coarse_seeds: Optional[torch.Tensor] = None,
+    n_real: Optional[int] = None,
 ):
     """One wave: rows [pos, pos + W) search the graph from ``seeds`` (W, p)
     and are committed; the stats fold in the wave's comparisons.  ``enc``
     is the compressed table of the whole of ``x`` (``cfg.precision``).
+    ``n_real`` (default ``min(W, n - pos)``) is how many of the W rows are
+    real; the distributed step passes its shard-local count.
 
     With a ``coarse`` level (a ``core.hierarchy.CoarseLevel``) the searches
     seed coarsely from ``coarse_seeds`` and each committed row joins its
@@ -273,7 +287,8 @@ def wave_core(
     when none was given."""
     W = cfg.wave
     n = x.shape[0]
-    n_real = min(W, n - pos)
+    if n_real is None:
+        n_real = min(W, n - pos)
     lanes = torch.arange(W, device=x.device)
     q = x[(pos + lanes).clamp_max(n - 1)]
     scfg = cfg.search_config()
@@ -286,7 +301,7 @@ def wave_core(
     res = res._replace(n_comps=torch.where(lanes < n_real, res.n_comps, 0))
     g2, edges = commit_wave(g, x, pos, n_real, res, cfg)
     comps = res.n_comps.sum()
-    if W > 1:  # the intra-wave tile's pairs
+    if cfg.intra_wave and W > 1:  # the intra-wave tile's pairs
         comps = comps + n_real * (n_real - 1) // 2
     stats2 = BuildStats(
         n_comps=stats.n_comps + comps,
@@ -348,7 +363,7 @@ def build(
     if callback_stride < 1:
         raise ValueError(f"callback_stride must be >= 1, got {callback_stride}")
     dev = device_lib.resolve(device)
-    x = x.to(dev).float()
+    x = stored_data(x, cfg, dev)
     n = x.shape[0]
     # one encode of the whole dataset serves every wave: rows not yet
     # inserted are never candidates, so encoding them early changes nothing
@@ -407,6 +422,24 @@ def build(
     if return_coarse:
         return g, stats, coarse
     return g, stats
+
+
+def _sub_builds(x, cfg, draws, bounds, dev):
+    """``build`` of each block [bounds[s], bounds[s + 1]) of x, one after
+    another, block s drawing from ``draws.fold_in(s)``: (graphs, coarse
+    levels, comps, waves, edges)."""
+    graphs, coarses = [], []
+    comps = waves = edges = 0
+    for s in range(len(bounds) - 1):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        g, st, c = build(x[lo:hi], cfg, return_coarse=True, device=dev,
+                         **draws_lib.build_kw(draws.fold_in(s), hi - lo, cfg, dev))
+        graphs.append(g)
+        coarses.append(c)
+        comps += int(st.n_comps)
+        waves += st.n_waves
+        edges += int(st.n_inserted_edges)
+    return graphs, coarses, comps, waves, edges
 
 
 def _wave_seeds(seed_fn, generator, wave, pos, W, n_valid, cfg, coarse, dev):
@@ -468,7 +501,13 @@ def build_parallel(
     ``fold_in(s)``, the merge tree from ``fold_in(1_000_000)`` and a coarse
     level re-derived on the merged graph from ``fold_in(2_000_000)``.
     ``shards=1`` is ``build``.  The blocks build one after another on the
-    one device; a ``mesh`` (one block per device) is refused.  ``tracker``
+    one device.  With ``mesh``, a ``torch.distributed`` process group of
+    ``shards`` ranks that all call with the same arguments, each rank builds
+    one block (``distributed.build_subgraphs``, its waves drawing from the
+    splits of ``draws`` itself, the reference's mesh chain), the merge
+    levels run one pair per rank (each side's cross search one batch, as
+    the reference's), rank 0 refines, and every rank returns
+    the same graph; ``n % shards`` must be 0.  ``tracker``
     (an ``obs.Tracker``) times the sub-builds (``parallel/subbuild``), each
     merge level and the folds (``merge_subgraphs``) and the refine
     (``parallel/refine``).  ``device``: where to run (None: the card).
@@ -480,39 +519,43 @@ def build_parallel(
     from repro_torch.core import hierarchy  # late: hierarchy imports construct
     from repro_torch.obs import NOOP
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_parallel on a device mesh needs core.distributed, not ported yet "
-            "(ROADMAP Queue A item 12)")
     dev = device_lib.resolve(device)
-    x = x.to(dev).float()
+    x = stored_data(x, cfg, dev)
     n = x.shape[0]
     draws = draws_lib.TorchDraws(0) if draws is None else draws
-    if shards == 1:
+    if shards == 1 and mesh is None:
         return build(x, cfg, return_coarse=return_coarse, tracker=tracker, device=dev,
                      **draws_lib.build_kw(draws, n, cfg, dev))
     bounds = partition_bounds(n, shards)
     sub = sub_cfg if sub_cfg is not None else cfg
     trk = tracker if tracker is not None else NOOP
-    graphs, coarses = [], []
-    sub_comps = sub_waves = sub_edges = 0
+    if mesh is not None:
+        from repro_torch.core import distributed  # late: distributed imports construct
+
+        n_ranks = distributed.world_size(mesh)
+        if shards != n_ranks:  # before the sub-builds
+            raise ValueError(f"the group has {n_ranks} ranks, build_parallel got "
+                             f"shards={shards}: on a group, one sub-graph per rank")
     with trk.span("parallel/subbuild") as sp:
-        for s in range(shards):
-            lo, hi = int(bounds[s]), int(bounds[s + 1])
-            g, st, c = build(x[lo:hi], sub, return_coarse=True, device=dev,
-                             **draws_lib.build_kw(draws.fold_in(s), hi - lo, sub, dev))
-            graphs.append(g)
-            coarses.append(c)
-            sub_comps += int(st.n_comps)
-            sub_waves += st.n_waves
-            sub_edges += int(st.n_inserted_edges)
-        sp.synced = True  # the counters' int() are the sync
+        if mesh is not None:
+            graphs, coarses, sub_comps, sub_waves, sub_edges = distributed.build_subgraphs(
+                mesh, x, sub, draws, device=dev)
+        else:
+            graphs, coarses, sub_comps, sub_waves, sub_edges = _sub_builds(
+                x, sub, draws, bounds, dev)
+        sp.synced = True  # the counters' int() (and the all-gather) are the sync
     scfg = merge_scfg if merge_scfg is not None else cfg.search_config()
     g, merge_comps, coarse = merge.merge_subgraphs(
         graphs, x, scfg, draws.fold_in(1_000_000), search_chunk=search_chunk, coarses=coarses,
-        tracker=tracker)
+        mesh=mesh, tracker=tracker)
     with trk.span("parallel/refine") as sp:
-        g, refine_comps = nndescent.refine(g, x, cfg.metric, rounds=refine_rounds)
+        root = mesh is None or distributed.shard_index(mesh) == 0
+        if root:
+            g, refine_comps = nndescent.refine(g, x, cfg.metric, rounds=refine_rounds)
+        if mesh is not None:  # rank 0's refined graph on every rank
+            g = distributed.broadcast_graph(g, 0, mesh)
+            refine_comps = int(distributed.broadcast(
+                torch.tensor(refine_comps if root else 0), 0, mesh))
         sp.sync(g.nbr_ids)
     stats = BuildStats(n_comps=counter(sub_comps + merge_comps + refine_comps, dev),
                        n_waves=sub_waves, n_inserted_edges=counter(sub_edges, dev))

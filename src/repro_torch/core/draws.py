@@ -128,8 +128,9 @@ def build_kw(draws: Draws, n: int, cfg, device=None) -> dict:
 
 def derive_kw(draws: Draws, g, cfg, device=None) -> dict:
     """``hierarchy.derive_coarse``'s landmark arguments keyed by ``draws``:
-    a permutation of the alive rows (first half of one split) and the
-    landmark graph's entry points (second half)."""
+    ``landmark_rows``, a permutation of the alive rows (first half of one
+    split), and ``seed_fn``, the landmark graph's entry points (second
+    half)."""
     from repro_torch.core import hierarchy  # late: hierarchy imports construct
 
     rows = torch.nonzero(g.alive[: g.n_valid])[:, 0].to(device=device, dtype=torch.int32)
@@ -137,4 +138,4 @@ def derive_kw(draws: Draws, g, cfg, device=None) -> dict:
     d_rows, d_graph = draws.split()
     perm = d_rows.permutation(rows.numel(), device)[:L].to(rows.device)
     return dict(landmark_rows=rows[perm.long()],
-                landmark_seed_fn=wave_seed_fn(d_graph, cfg.n_seeds, device=device))
+                seed_fn=wave_seed_fn(d_graph, cfg.n_seeds, device=device))

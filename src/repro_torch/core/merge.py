@@ -18,8 +18,10 @@ such merges.  Entry points come from a ``core.draws.Draws`` with the
 reference's key chain: pair i of level l draws from ``fold_in((l << 16) |
 i)`` of the root, a merge splits its draws between the two sides, and
 cross-search chunk i of a side draws from ``fold_in(i)`` of its half.  The
-pairs of a level merge one after another on the one device; the mesh
-branch (one pair per device) is not ported yet.
+pairs of a level merge one after another on the one device, or, given a
+process group (``mesh``), one pair per rank (``distributed.merge_pairs_mesh``,
+whose cross searches draw once per side for the whole batch, as the
+reference's mesh branch does).
 """
 
 from __future__ import annotations
@@ -305,6 +307,22 @@ def symmetric_merge(g_a, g_b, x: torch.Tensor, scfg, draws=None, *, search_chunk
     return merged, comps_a + comps_b + hop_comps
 
 
+def _pairs_mesh_ready(pairs, mesh) -> bool:
+    """A level merges on the group iff its pairs are no more than the ranks
+    and every pair has the same shapes (the reference's test)."""
+    from repro_torch.core import distributed  # late: distributed imports merge
+
+    if mesh is None or len(pairs) > distributed.world_size(mesh):
+        return False
+
+    def sig(node):
+        g = node[0]
+        return (g.capacity, g.k, g.rev_capacity)
+
+    a0, b0 = sig(pairs[0][0]), sig(pairs[0][1])
+    return all(sig(a) == a0 and sig(b) == b0 for a, b in pairs)
+
+
 def merge_subgraphs(graphs, x: torch.Tensor, scfg, draws=None, *, search_chunk: int = 512,
                     coarses=None, mesh=None, tracker=None):
     """Fold S adjacent sub-graphs into one with a balanced pairwise tree of
@@ -316,17 +334,22 @@ def merge_subgraphs(graphs, x: torch.Tensor, scfg, draws=None, *, search_chunk: 
     seed the level-0 cross searches; each merged pair gets a folded level
     (``hierarchy.fold_coarse``) that seeds the next level's.  ``tracker``
     (an ``obs.Tracker``) times each level under ``merge/level<l>`` and the
-    folds under ``merge/fold``.  A ``mesh`` (one pair per device) is refused.
+    folds under ``merge/fold``.
+
+    ``mesh`` (a ``torch.distributed`` process group; every rank calls with
+    the same arguments): a level whose pairs are no more than the ranks and
+    share their shapes merges one pair per rank
+    (``distributed.merge_pairs_mesh``, coarse-seeded only when every pair
+    has both levels, each side's cross search one batch, as the
+    reference's); other levels merge here one after another, their cross
+    searches in chunks of ``search_chunk``.  Every rank returns the same
+    graph.
 
     Returns (merged graph over all of x, comps of every merge and fold, the
     root coarse level or None)."""
     from repro_torch.core import hierarchy  # late: hierarchy imports merge
     from repro_torch.obs import NOOP
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "merge_subgraphs on a device mesh needs core.distributed, not ported yet "
-            "(ROADMAP Queue A item 12)")
     if not graphs:
         raise ValueError("merge_subgraphs needs at least one sub-graph")
     if coarses is not None and len(coarses) != len(graphs):
@@ -348,11 +371,23 @@ def merge_subgraphs(graphs, x: torch.Tensor, scfg, draws=None, *, search_chunk: 
         pair_draws = [draws.fold_in((level << 16) | i) for i in range(len(pairs))]
         out = []
         with trk.span(f"merge/level{level}") as sp:
-            for i, ((ga, lo, mid, ca), (gb, _, hi, cb)) in enumerate(pairs):
-                g, c = symmetric_merge(ga, gb, x[lo:hi], scfg, pair_draws[i],
-                                       search_chunk=search_chunk, coarse_a=ca, coarse_b=cb)
+            if _pairs_mesh_ready(pairs, mesh):
+                from repro_torch.core import distributed  # late: distributed imports merge
+
+                pair_coarses = [(a[3], b[3]) for a, b in pairs]
+                if any(ca is None or cb is None for ca, cb in pair_coarses):
+                    pair_coarses = None
+                merged, c = distributed.merge_pairs_mesh(
+                    mesh, [(a[0], b[0]) for a, b in pairs], [x[a[1]:b[2]] for a, b in pairs],
+                    scfg, pair_draws, coarses=pair_coarses)
                 total_comps += c
-                out.append([g, lo, hi, None])
+                out = [[g, a[1], b[2], None] for g, (a, b) in zip(merged, pairs)]
+            else:
+                for i, ((ga, lo, mid, ca), (gb, _, hi, cb)) in enumerate(pairs):
+                    g, c = symmetric_merge(ga, gb, x[lo:hi], scfg, pair_draws[i],
+                                           search_chunk=search_chunk, coarse_a=ca, coarse_b=cb)
+                    total_comps += c
+                    out.append([g, lo, hi, None])
             sp.sync(out[-1][0].nbr_ids)
         with trk.span("merge/fold") as sp:
             for i, ((_, lo, mid, ca), (_, _, _, cb)) in enumerate(pairs):

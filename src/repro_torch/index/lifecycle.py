@@ -52,7 +52,7 @@ class OnlineIndex:
     """A long-lived online k-NN index: graph + data + config + churn state."""
 
     graph: KNNGraph
-    items: torch.Tensor  # (capacity, d) float32; rows beyond n_valid are free
+    items: torch.Tensor  # (capacity, d) float32 or bfloat16; rows beyond n_valid are free
     build_cfg: construct.BuildConfig
     coarse: Optional[hierarchy.CoarseLevel] = None  # under seed_mode="coarse"
     free_ids: tuple = ()  # ledger of removed rows < n_valid
@@ -139,7 +139,7 @@ class OnlineIndex:
                 f"pass either cfg or BuildConfig kwargs, not both (got cfg and {sorted(cfg_kw)})"
             )
         dev = device_lib.resolve(device)
-        items = torch.as_tensor(items).to(device=dev, dtype=torch.float32)
+        items = construct.stored_data(torch.as_tensor(items), cfg, dev)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         n = items.shape[0]
@@ -169,7 +169,8 @@ class OnlineIndex:
         the default flushes once ``ingest_batch`` rows wait.  A ``seed_fn``
         given with a buffered add is kept for the flush that inserts it.
         Returns self (mutates in place)."""
-        new_items = torch.as_tensor(new_items, dtype=torch.float32).to(self.device).clone()
+        # buffered in the items' dtype (bfloat16 under data_bf16)
+        new_items = torch.as_tensor(new_items).to(self.device, self.items.dtype).clone()
         if new_items.dim() == 1:
             new_items = new_items[None, :]
         if new_items.shape[0]:

@@ -91,7 +91,10 @@ def save(
     extra_meta: Optional[dict] = None,
 ) -> str:
     """Write a versioned snapshot of (graph, data, config) under ``path``;
-    ``items`` is the (capacity, d) data region backing the graph rows."""
+    ``items`` is the (capacity, d) data region backing the graph rows.  Data
+    stored in another dtype (a ``data_bf16`` build's bfloat16) is written as
+    float32, lossless for bf16, with its dtype recorded as ``items_dtype``
+    and restored on load, as the reference does."""
     arrays = {
         "nbr_ids": g.nbr_ids,
         "nbr_dist": g.nbr_dist,
@@ -126,7 +129,7 @@ def save(
         "k": int(g.k),
         "rev_capacity": int(g.rev_capacity),
         "dim": int(items.shape[1]),
-        "items_dtype": "float32",
+        "items_dtype": str(items.dtype).removeprefix("torch."),
         "build_config": dataclasses.asdict(cfg),
         "arrays": {k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in arrays.items()},
     }
@@ -203,10 +206,11 @@ def load(
                 f"snapshot at {path!r} is corrupt: payload array {name!r} has shape "
                 f"{list(raw[name].shape)}, manifest records {spec['shape']}"
             )
-    if manifest.get("items_dtype", "float32") != "float32":
+    items_dtype = getattr(torch, manifest.get("items_dtype", "float32"), None)
+    if not isinstance(items_dtype, torch.dtype) or not items_dtype.is_floating_point:
         raise ValueError(
-            f"snapshot at {path!r} stores items as {manifest['items_dtype']}; the "
-            "port runs float32 data only"
+            f"snapshot at {path!r} records items_dtype {manifest['items_dtype']!r}, "
+            "not a float dtype"
         )
 
     def arr(name: str) -> Optional[torch.Tensor]:
@@ -224,7 +228,7 @@ def load(
     alive = arr("alive")
     if alive is None:  # payloads without liveness: every allocated row lives
         alive = torch.arange(cap, device=dev) < n_valid
-    items = arr("items")
+    items = arr("items").to(items_dtype)
     empty = graph_lib.empty_graph(cap, k, rev_cap, device=dev)
 
     def or_empty(name):

@@ -1,4 +1,5 @@
-"""Tiled pairwise distances: the wrapper of ``csrc/distance.cu`` and its
+"""Tiled pairwise distances: the wrapper of ``csrc/distance.cu`` (and
+``distance_bf16.cu``, both entries of the kernel in ``distance.cuh``) and its
 plain version (counterpart of ``repro.kernels.distance``).
 
 ``pairwise_distance(q, x)`` gives the (m, n) float32 distances between two
@@ -8,8 +9,11 @@ register-blocked SIMT GEMM (128x128 tiles, 8x8 per thread, persistent CTAs)
 in full IEEE fp32 with a norm epilogue (``x_sq_norms``, the graph-resident
 ``‖x‖²`` cache, replaces the x-side norm reduction for l2); l1/chi2 run in
 the same tiling.  Cosine normalizes both sides here and
-takes ``1 − dot`` in the kernel.  Its plain version is
-``kernels.ref.pairwise_distance``.
+takes ``1 − dot`` in the kernel.  Two bfloat16 operands (a ``data_bf16``
+build) run the kernel's bf16-operand instantiation, which widens its loads
+in registers and is otherwise the fp32 kernel; other mixes are widened to
+fp32 here.  Its plain version is ``kernels.ref.pairwise_distance``, which
+widens every operand.
 """
 
 from __future__ import annotations
@@ -36,13 +40,19 @@ def pairwise_distance(
     *,
     x_sq_norms: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel: (m, d) x (n, d) float32 -> (m, n) float32.
-    CUDA tensors only."""
+    """Launch the CUDA kernel: (m, d) x (n, d) -> (m, n) float32, both
+    operands bfloat16 (counted as ``pairwise_distance.bf16``) or else
+    widened to float32.  CUDA tensors only."""
     if metric not in KERNEL_METRIC:
         raise KeyError(f"unknown metric {metric!r}; have {sorted(KERNEL_METRIC)}")
     if metric == "cosine":
         q, x = metrics.normalize_rows(q), metrics.normalize_rows(x)
-    q, x = q.float().contiguous(), x.float().contiguous()
+    if q.dtype == x.dtype == torch.bfloat16:
+        name, lib, symbol = "pairwise_distance.bf16", "distance_bf16", "launch_pairwise_distance_bf16"
+    else:
+        name, lib, symbol = "pairwise_distance", "distance", "launch_pairwise_distance"
+        q, x = q.float(), x.float()
+    q, x = q.contiguous(), x.contiguous()
     m, d = q.shape
     n = x.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -52,9 +62,9 @@ def pairwise_distance(
         xn = x_sq_norms.float().contiguous()
         tensors.append(xn)
     _cuda.require_cuda("pairwise_distance", *tensors)
-    fn = _cuda.function("distance", "launch_pairwise_distance", _ARGTYPES)
+    fn = _cuda.function(lib, symbol, _ARGTYPES)
     _cuda.launch(
-        "pairwise_distance", fn, x.device,
+        name, fn, x.device,
         _cuda.ptr(q), _cuda.ptr(x), None if xn is None else _cuda.ptr(xn),
         _cuda.ptr(out), m, n, d, KERNEL_METRIC[metric],
     )

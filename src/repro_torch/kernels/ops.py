@@ -39,11 +39,20 @@ def pairwise_distance(
     metric: str = "l2",
     *,
     x_sq_norms: Optional[torch.Tensor] = None,
+    enc: Optional[precision_lib.EncodedData] = None,
+    precision: str = "fp32",
 ) -> torch.Tensor:
-    """(m, d) x (n, d) -> (m, n) float32 distances."""
-    if x.is_cuda:
+    """(m, d) x (n, d) -> (m, n) float32 distances.
+
+    fp32 and bf16 operands run the kernel (a bf16 pair its bf16-operand
+    instantiation, fp32 accumulation).  A compressed x side
+    (``enc``/``precision`` bf16, int8 or pq) is plain PyTorch on either
+    device, as in the reference, whose Pallas pairwise kernel never takes
+    one: it feeds no kernel of the main path."""
+    compressed = enc is not None and precision != "fp32"
+    if x.is_cuda and not compressed:
         return _distance.pairwise_distance(q, x, metric, x_sq_norms=x_sq_norms)
-    return ref.pairwise_distance(q, x, metric, x_sq_norms=x_sq_norms)
+    return ref.pairwise_distance(q, x, metric, x_sq_norms=x_sq_norms, enc=enc, precision=precision)
 
 
 def gather_distance(

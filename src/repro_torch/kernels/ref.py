@@ -27,14 +27,76 @@ def pairwise_distance(
     metric: str = "l2",
     *,
     x_sq_norms: Optional[torch.Tensor] = None,
+    enc: Optional[precision_lib.EncodedData] = None,
+    precision: str = "fp32",
 ) -> torch.Tensor:
     """(m, d) x (n, d) -> (m, n) float32; the l2 form consumes the cached
-    ``‖x‖²`` when given."""
+    ``‖x‖²`` when given.  Operands of any float dtype are widened to fp32.
+    ``enc``/``precision`` take the x side from a compressed table
+    (``pairwise_distance_compressed``)."""
+    if enc is not None and precision != "fp32":
+        return pairwise_distance_compressed(q, x, metric, x_sq_norms=x_sq_norms, enc=enc,
+                                            precision=precision)
     if x_sq_norms is not None and metric == "l2":
         qf, xf = q.float(), x.float()
         qn = (qf * qf).sum(-1, keepdim=True)
         return (qn + x_sq_norms.float()[None, :] - 2.0 * (qf @ xf.T)).clamp_min(0.0)
     return metrics.pairwise(metric, q, x)
+
+
+def pairwise_distance_compressed(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    metric: str,
+    *,
+    x_sq_norms: Optional[torch.Tensor],
+    enc: precision_lib.EncodedData,
+    precision: str,
+) -> torch.Tensor:
+    """All-pairs distances against a compressed x side: the bf16 or int8
+    table, or PQ-ADC codes (the reference's ``ref._pairwise_distance_compressed``,
+    which runs outside any Pallas kernel: plain PyTorch on either device).
+
+    The ``‖x‖²`` term comes from the exact cache (derived from ``x`` when
+    absent); l2/ip/cosine take the dot with the widened table, int8 scaling
+    it by the row's scale (1 at zero scales); l1/chi2 dequantize the table
+    and reduce exactly; pq sums the per-subspace ADC tables over each row's
+    codes, cosine dividing the dot by the exact norm."""
+    precision_lib.validate_precision(precision)
+    qf = q.float()
+    if x_sq_norms is None:
+        x_sq_norms = squared_norms(x)
+    xn = x_sq_norms.float()[None, :]  # (1, n)
+    if metric == "cosine":
+        qf = metrics.normalize_rows(qf)
+    if precision == "pq":
+        lut = precision_lib.adc_tables(qf, enc.codebook, metric)  # (m, M, K)
+        M = lut.shape[1]
+        codes = enc.codes.long()  # (n, M)
+        d = torch.zeros((qf.shape[0], codes.shape[0]), dtype=torch.float32, device=qf.device)
+        for j in range(M):  # subspace order, as the reference sums its terms
+            d = d + lut[:, j, :][:, codes[:, j]]
+        if metric == "cosine":
+            d = 1.0 - d / xn.sqrt().clamp_min(1e-12)
+        return d
+    table = enc.data.float()
+    scale = None
+    if precision == "int8":
+        s = enc.scale.float()
+        scale = torch.where(s > 0, s, 1.0)
+    if metric in ("l2", "ip", "cosine"):
+        dots = qf @ table.T
+        if scale is not None:
+            dots = dots * scale[None, :]
+        if metric == "l2":
+            qn = (qf * qf).sum(-1, keepdim=True)
+            return (qn + xn - 2.0 * dots).clamp_min(0.0)
+        if metric == "cosine":
+            return 1.0 - dots / xn.sqrt().clamp_min(1e-12)
+        return -dots
+    if scale is not None:
+        table = table * scale[:, None]
+    return metrics.pairwise(metric, q, table)
 
 
 def gather_distance(

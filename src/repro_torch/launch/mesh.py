@@ -1,0 +1,66 @@
+"""The process group of a sharded deployment (counterpart of
+``repro.launch.mesh.make_host_mesh``).
+
+JAX's mesh is one controller over many devices; ``torch.distributed`` is
+SPMD: one process per shard, every process calling the same functions.
+``init_group`` joins this process to a group of ``world_size`` ranks at
+``tcp://localhost:<port>`` and returns it; ``core.distributed`` takes that
+group where the reference takes a mesh.
+
+The backend is the caller's choice, never picked here:
+
+* ``"nccl"`` when each rank has a card of its own (rank r uses card r);
+  asking for more ranks than cards raises;
+* ``"gloo"`` for the CPU tests, and for several ranks sharing one card,
+  where its collectives stage the few tensors they move through the host
+  (``core.distributed`` does that).
+
+Tensors stay on the device the caller gives them.  Nothing here runs when
+the module is imported.
+"""
+
+from __future__ import annotations
+
+import datetime
+import socket
+
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("gloo", "nccl")
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on right now."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def init_group(rank: int, world_size: int, backend: str, port: int, *,
+               timeout_s: float = 600.0):
+    """Join the default process group as ``rank`` of ``world_size`` over
+    ``backend`` at ``tcp://localhost:<port>`` and return it (the group every
+    ``core.distributed`` call takes).  A collective that waits longer than
+    ``timeout_s`` raises instead of hanging."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside a world of {world_size}")
+    if backend == "nccl":
+        cards = torch.cuda.device_count()
+        if world_size > cards:
+            raise ValueError(
+                f"nccl needs a card per rank: {world_size} ranks, {cards} cards "
+                "(several ranks on one card take gloo)")
+        torch.cuda.set_device(rank)
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return dist.group.WORLD
+
+
+def close_group() -> None:
+    """Leave the default process group (a no-op outside one)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

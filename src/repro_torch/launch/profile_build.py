@@ -38,10 +38,13 @@ from repro_torch.launch import build_graph
 
 PROFILE_ROWS = 200_000
 TOP = 20
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the fp32
-# CUDA-core rate (the fp32 kernels use no tensor cores)
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, and the rate
+# for products of each operand type: fp32 on the CUDA cores (IEEE fp32 has
+# no tensor-core form), bf16 x bf16 with fp32 sums on the tensor cores
+# (dense), whose products are exact in fp32
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FLOP_PER_S = {"fp32": FP32_FLOP_PER_S, "bf16": 989e12}
 ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
 # ~0.1 s at the H100's clock: longer than the host takes to queue one timing
 SPIN_CYCLES = 200_000_000
@@ -50,11 +53,12 @@ SPIN_CYCLES = 200_000_000
 PORT_KERNELS = ("gather_distance_kernel", "fused_expand_kernel", "pairwise_kernel")
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, operands: str = "fp32") -> tuple[float, str]:
     """Least time on an H100: the larger of bytes over the HBM rate and flops
-    over the fp32 rate, and which of the two it is."""
+    over the card's rate for products of ``operands`` ("fp32" or "bf16", both
+    operands of that type), and which of the two it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / FLOP_PER_S[operands] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

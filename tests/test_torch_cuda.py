@@ -174,6 +174,54 @@ def test_pairwise_kernel_shapes(card, metric, m, n, d, integer):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("metric", METRICS + ["l2-cached"])
+@pytest.mark.parametrize("m,n,d", PAIRWISE_SHAPES)
+@pytest.mark.parametrize("integer", [True, False])
+def test_pairwise_kernel_bf16_operands(card, metric, m, n, d, integer):
+    """The bf16-operand instantiation equals the fp32 kernel on the widened
+    rows bit for bit (widening is exact), and the plain version as the fp32
+    kernel does; cosine normalizes in fp32 and takes the fp32 kernel."""
+    cached = metric == "l2-cached"
+    metric = metric.removesuffix("-cached")
+    q = _data((m, d), 11, metric, integer, card).to(torch.bfloat16)
+    x = _data((n, d), 12, metric, integer, card).to(torch.bfloat16)
+    xn = (x.float() * x.float()).sum(-1) if cached else None
+    before = ops.launch_counts()
+    got = distance.pairwise_distance(q, x, metric, x_sq_norms=xn)
+    after = ops.launch_counts()
+    bf16_launches = after["pairwise_distance.bf16"] - before["pairwise_distance.bf16"]
+    assert bf16_launches == (0 if metric == "cosine" else 1)
+    assert torch.equal(got, distance.pairwise_distance(q.float(), x.float(), metric, x_sq_norms=xn))
+    want = ref.pairwise_distance(q, x, metric, x_sq_norms=xn)
+    if integer and metric in EXACT:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+def test_bf16_data_build_kernels_match_plain(card, monkeypatch):
+    """A data_bf16 build on integer rows: the bf16 table and pairwise
+    kernels launch, and the graph equals the plain versions' bit for bit."""
+    x = _data((3000, 16), 7, "l2", True, card)
+    cfg = construct.BuildConfig(k=10, wave=256, beam=24, n_seeds=4, max_iters=30,
+                                data_bf16=True)
+
+    def seed_fn(wave, pos, W, n_valid):
+        g = torch.Generator().manual_seed(wave)
+        return torch.randint(0, max(n_valid, 1), (W, cfg.n_seeds), generator=g)
+
+    ops.reset_launch_counts()
+    g_k, st_k = construct.build(x, cfg, seed_fn=seed_fn, device=card)
+    counts = ops.launch_counts()
+    for name in ("gather_distance.bf16", "fused_expand.bf16", "pairwise_distance.bf16"):
+        assert counts[name] > 0, counts
+    _route_plain(monkeypatch)
+    g_p, st_p = construct.build(x, cfg, seed_fn=seed_fn, device=card)
+    for name in ("nbr_ids", "nbr_dist", "nbr_lam", "rev_ids", "rev_lam", "rev_ptr", "alive"):
+        assert torch.equal(getattr(g_k, name), getattr(g_p, name)), name
+    assert int(st_k.n_comps) == int(st_p.n_comps)
+
+
 def test_build_kernels_match_plain_and_count_launches(card, monkeypatch):
     """A small integer build: identical graphs through the kernels and through
     the plain versions; every kernel launched."""

@@ -126,12 +126,13 @@ def test_build_config_from_reference_dict():
     cfg = convert.build_config_from_dict(ref.__dict__)
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
-    # compressed precisions and coarse seeding are carried; settings the
-    # port does not run raise
+    # compressed precisions, bf16 storage, the tile switch and coarse
+    # seeding are carried
     assert convert.build_config_from_dict(
         dataclasses.replace(ref, precision="int8").__dict__).precision == "int8"
-    with pytest.raises(ValueError):
-        convert.build_config_from_dict(dataclasses.replace(ref, data_bf16=True).__dict__)
+    bf16 = convert.build_config_from_dict(
+        dataclasses.replace(ref, data_bf16=True, intra_wave=False).__dict__)
+    assert (bf16.data_bf16, bf16.intra_wave) == (True, False)
     coarse = dataclasses.replace(ref, seed_mode="coarse", coarse_landmarks=77, coarse_members=5,
                                  coarse_top=3)
     cfg = convert.build_config_from_dict(coarse.__dict__)

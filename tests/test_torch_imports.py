@@ -45,6 +45,16 @@ def test_no_jax_or_reference_package_in_sys_modules():
     assert int(out.stdout.strip()) >= len(_modules())
 
 
+def test_isolation_check_covers_every_module():
+    """The subprocess above imports every module of the package, the mesh,
+    checkpoint, distributed and build-variant modules among them."""
+    mods = _modules()
+    for name in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
+                 "repro_torch.train.checkpoint", "repro_torch.configs.knn_olg",
+                 "repro_torch.data.synthetic", "repro_torch.launch.build_graph"):
+        assert name in mods, name
+
+
 def test_chip_smoke_imports_no_jax():
     text = (ROOT / "chip_smoke.py").read_text()
     for line in text.splitlines():

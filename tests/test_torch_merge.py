@@ -31,6 +31,7 @@ from repro_torch.core import construct as tconstruct
 from repro_torch.core import graph as tgraph
 from repro_torch.core import hierarchy as thier
 from repro_torch.core import merge as tmerge
+from repro_torch.core.draws import TorchDraws
 from repro_torch.index import ShardedIndex as TRouter
 from repro_torch.kernels import ops as tops
 
@@ -214,12 +215,60 @@ def test_coarse_router_matches_reference(data):
 
 
 def test_mesh_is_refused_naming_item_12(data):
-    _, _, gt, _ = _leaves(data, 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmerge.merge_subgraphs(gt, torch.from_numpy(data), _tcfg().search_config(),
-                               mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tconstruct.build_parallel(torch.from_numpy(data), _tcfg(), mesh=object(), device="cpu")
+    """Once a refusal, now the mesh branch (Queue A item 12) on one rank: a
+    level of one pair merges on a one-rank gloo group, equal bit for bit to
+    the reference's mesh path on a one-device mesh (each side searched in
+    one batch; ``search_chunk`` is for the levels merged on the host) and
+    to ``distributed.merge_pairs_mesh``; a group whose size is not the
+    shard count is refused before any sub-build."""
+    from repro.kernels import compat
+    from repro_torch.core import distributed
+    from repro_torch.launch import mesh
+
+    gj, _, gt, _ = _leaves(data, 2)
+    x = torch.from_numpy(data)
+    scfg = _tcfg().search_config()
+    key = jax.random.PRNGKey(3)
+    want, c_want, _ = jmerge.merge_subgraphs(gj, jnp.asarray(data), _jcfg().search_config(), key,
+                                             mesh=compat.make_mesh((1,), ("data",)))
+    grp = mesh.init_group(0, 1, "gloo", mesh.free_port())
+    try:
+        g, comps, _ = tmerge.merge_subgraphs(gt, x, scfg, tp.JaxDraws(key), mesh=grp)
+        tp.assert_graphs_equal(g, want, "mesh merge")
+        assert comps == int(c_want)
+        own, own_comps = distributed.merge_pairs_mesh(
+            grp, [(gt[0], gt[1])], [x], scfg, [tp.JaxDraws(key).fold_in(0)])
+        assert own_comps == comps
+        tp.assert_graphs_equal(own[0], want, "merge_pairs_mesh")
+        with pytest.raises(ValueError, match="one sub-graph per rank"):
+            tconstruct.build_parallel(x, _tcfg(), shards=2, mesh=grp, device="cpu")
+    finally:
+        mesh.close_group()
+
+
+def test_a_converged_lane_still_moves_when_stepped():
+    """Why the mesh's cross searches are not cut into chunks: a lane that
+    has converged gets no candidates, yet a step still re-merges its beam,
+    and a hole the previous merge's dedupe left (-1, +inf) sorts to the
+    end, so how many steps its batch runs after it converged can change its
+    top-k.  The port's step does what the reference's does."""
+    e, H = 6, 16
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 8, (10, D)).astype(np.float32)
+    q = x[:1] + 1
+    beam_ids = np.array([[2, -1, 5, 7, -1, -1]], np.int32)
+    beam_dist = np.array([[1.0, np.inf, 2.0, 3.0, np.inf, np.inf]], np.float32)
+    beam_exp = np.ones((1, e), bool)
+    cands = np.full((1, 4), -1, np.int32)
+    vis_ids = np.full((1, H), -1, np.int32)
+    vis_dist = np.full((1, H), np.inf, np.float32)
+    args = (q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist)
+    got = tops.expand_step(*(torch.from_numpy(a.copy()) for a in args), metric="l2")
+    want = jops.expand_step(*(jnp.asarray(a) for a in args), metric="l2")
+    assert got[0].tolist() == [[2, 5, 7, -1, -1, -1]]
+    assert got[0].tolist() == np.asarray(want[0]).tolist()
+    assert got[1].tolist() == np.asarray(want[1]).tolist()
+    assert int(got[5].sum()) == int(np.asarray(want[5]).sum()) == 0
 
 
 def test_torch_draws_are_values():

@@ -34,6 +34,16 @@ def test_bound_names_the_larger_time():
     assert how == "operations" and t == pytest.approx(1.0)
 
 
+def test_bound_takes_the_rate_of_the_operand_type():
+    # bf16 x bf16 products run on the tensor cores: 989 TFLOP/s dense
+    t, how = profile_build.bound_ms(1.0, 989e9, "bf16")
+    assert how == "operations" and t == pytest.approx(1.0)
+    # the 4096^2 x 128 bf16-operand tile is bound by its bytes there
+    nbytes = 2 * (2 * 4096 * 128) + 4 * (4096 + 4096 * 4096)
+    t, how = profile_build.bound_ms(nbytes, 2 * 4096 * 4096 * 128, "bf16")
+    assert how == "bytes" and t == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
 def test_count_expansions_matches_a_direct_count(monkeypatch):
     x = torch.from_numpy(np.random.RandomState(3).randint(0, 16, (700, 8)).astype(np.float32))
     cfg = construct.BuildConfig(k=5, wave=64, beam=12, n_seeds=3, max_iters=10)
