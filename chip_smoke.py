@@ -124,14 +124,37 @@ needs one NVIDIA card and runs, in order:
    (seconds by span, recall@10 over phase 4's rows, which must reach phase
    7a's less 0.02, the same graph on every rank).  A rank that fails fails
    the run;
-9. a ``kernels`` JSON line: each kernel's launches in the build of its own
+9. the recommender serving path at the published widths: (a) each of
+   deepfm, xdeepfm, bst and mind at ``full_config()`` (tables of 39e6x10,
+   39e6x10, 1e7x32 and 1e7x64 drawn on the card, one arch at a time):
+   ``serve_scores`` at serve_p99 (B=512) and serve_bulk (B=262,144, in row
+   chunks) from ``recsys_data`` batches, and its retrieval_cand scorer over
+   10^6 candidates, each call timed to its synchronize after a warm-up
+   with its peak memory; every score finite and the first 256 rows within
+   rtol 1e-4, atol 1e-5 of the same parameters on the CPU in float64.
+   (b) The MIND table's first 10^6 rows, L2-normalised, indexed with
+   ``retrieval.build_index(metric="ip", k=16, wave=4096, beam=40)``; 256
+   users' histories through ``mind_interests`` (4 interests, normalised),
+   each served with ``retrieve(top_k=20, beam=48)``, against
+   ``retrieve_brute`` (overlap@20 mean and minimum printed), p50/p99 per
+   request, comps per query and the launch counts; 4,096 fresh rows added
+   and 4,096 ids removed, the first 64 requests served again (a cut of
+   depth, for the phase's time aim) with no withdrawn id;
+   the same requests through the plain versions on the card must return
+   the same ids.  Each kernel is then held against its plain version, and
+   timed, at the shapes this path gave it (arguments captured from the
+   build, B=4096, and from a request, B=4: d=64, ip).  (c)
+   ``examples/retrieval_serving_torch.py`` at its own size (8,000 items,
+   d=16, W=512) with mean overlap@20 >= 0.90;
+10. a ``kernels`` JSON line: each kernel's launches in the build of its own
    precision (phase 4 for fp32, phase 5 for bf16 and int8, the ``data_bf16``
    build for the bf16-operand pairwise) and, for the three fp32 kernels, in
    the serving run (``serve_launches``) and in each phase 7 and 8 path
    (``parallel_launches``, ``router_launches``, ``merge_shards_launches``,
    ``mesh_build_launches``, ``mesh_search_launches``,
-   ``mesh_parallel_launches``, summed over the ranks), its error against
-   the plain version, times and bound.
+   ``mesh_parallel_launches``, summed over the ranks) and phase 9b's
+   (``retrieval_launches``), its error against the plain version, times and
+   bound (phase 9b's shapes under ``mind_`` keys).
 
 It exits non-zero, printing no result, when any phase fails, when no CUDA
 device is present, or when it is run without the rest of the repository.
@@ -189,6 +212,30 @@ FP32_KERNELS = ("gather_distance", "fused_expand", "pairwise_distance")
 MESH_RANKS, MESH_WAVE = 4, 64
 # lanes per slice of the plain expansion where a batch is larger
 PLAIN_LANES = 65536
+# phase 9: the recommender serving path.  Each arch's parameters and
+# batches are drawn on the card from these seeds; its scores on the first
+# CHECK_ROWS rows (or candidates) are held against the same parameters on
+# the CPU in float64, |card - cpu| <= SCORE_ATOL + SCORE_RTOL * |cpu| (fp32
+# sums in another order: the CPU's own fp32 differs from its float64 by at
+# most 8.2e-7 at these widths)
+RECSYS_ARCHS = ("deepfm", "xdeepfm", "bst", "mind")
+RECSYS_PARAM_SEED, RECSYS_DATA_SEED = 53, 59
+CHECK_ROWS, SCORE_RTOL, SCORE_ATOL = 256, 1e-4, 1e-5
+# the MIND index: the table's first MIND_ROWS rows, L2-normalised, built at
+# the knn-lgd wave (W=4096: the example's W=512 would take eight times the
+# waves), k=16, beam 40; MIND_USERS users' 4 interests each served top-20
+# at beam 48 (entry points seeded MIND_QUERY_SEED + user); then MIND_CHURN
+# fresh rows added and as many ids removed.  The kernels' copies of each
+# kernel's arguments are taken at the CAPTURE_CALL-th call of each shape
+MIND_ROWS, MIND_USERS, MIND_CHURN, MIND_WAVE = 1_000_000, 256, 4096, 4096
+MIND_K, MIND_BUILD_BEAM, MIND_TOP_K, MIND_BEAM = 16, 40, 20, 48
+MIND_INDEX_SEED, MIND_USER_SEED, MIND_FRESH_SEED, MIND_VICTIM_SEED = 61, 67, 71, 73
+MIND_QUERY_SEED, CAPTURE_CALL = 1000, 3
+# users served again after the churn (a cut of depth, for the phase's time aim)
+MIND_AFTER_USERS = 64
+# examples/retrieval_serving_torch.py at its own size: mean overlap@20 with
+# exact retrieval, the near-exact top-20 the example claims
+EXAMPLE_OVERLAP = 0.90
 
 # the kernels, the CUDA sources that replace the TPU kernels, and the
 # pallas_call sites with the storage type each form takes
@@ -256,7 +303,7 @@ def main() -> int:
         for phase in (smoke.build_kernels, smoke.phase_kernels, smoke.phase_build_parity,
                       smoke.phase_full, smoke.phase_compressed, smoke.phase_serving,
                       smoke.phase_parallel, smoke.phase_router, smoke.phase_merge_shards,
-                      smoke.phase_mesh):
+                      smoke.phase_mesh, smoke.phase_recsys):
             phase()
             print(f"  [{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except PhaseError as exc:
@@ -700,37 +747,38 @@ class Smoke:
                      what=f"router seed gather B={REQUEST} C={p}")
         self.time_gather(shard, sets, "fp32", prefix="router_")
 
-    def time_gather(self, x, sets, precision, prefix=""):
+    def time_gather(self, x, sets, precision, prefix="", metric="l2"):
         """Time the gather over the query and id ``sets`` of one shape
         (``bench_gather.measure``: kernel cold and warm, empty launch at its
         grid, ``index_select``, plain version, bound) into the record's
         ``prefix`` keys."""
-        m = self.bench.measure(x, sets, precision)
+        m = self.bench.measure(x, sets, precision, metric)
         B, C, d = m["B"], m["C"], m["d"]
         keys = ("ms", "warm_ms", "plain_ms", "floor_ms", "index_select_ms", "bound_ms",
                 "bound_by")
         rec = {prefix + k: m[k] for k in keys}
-        rec[prefix + "shape"] = f"B={B} C={C} d={d}"
+        rec[prefix + "shape"] = f"B={B} C={C} d={d}" + ("" if metric == "l2" else f" {metric}")
         self.rec[kernel_name("gather_distance", precision)].update(rec, library_ms=None)
-        print(f"{kernel_name('gather_distance', precision)} B={B} C={C} d={d}: kernel "
+        print(f"{kernel_name('gather_distance', precision)} B={B} C={C} d={d}"
+              + ("" if metric == "l2" else f" {metric}") + ": kernel "
               f"{m['ms']:.6f} ms (warm {m['warm_ms']:.6f} ms), plain {m['plain_ms']:.6f} ms, "
               f"empty launch {m['floor_ms']:.6f} "
               f"ms, index_select {m['index_select_ms']:.6f} ms, bound {m['bound_ms']:.6f} ms "
               f"({m['bound_by']})", flush=True)
 
-    def time_pairwise(self, q, x, xn, *, prefix=None):
+    def time_pairwise(self, q, x, xn, *, prefix=None, metric="l2"):
         """Time the pairwise kernel (its bf16-operand form for bf16 rows),
         its plain version, ``torch.mm`` and ``torch.cdist`` (on the fp32
-        rows, widened outside the timing) at one shape; with a ``prefix``,
-        into the record's keys under it."""
+        rows, widened outside the timing) at one shape under ``metric``;
+        with a ``prefix``, into the record's keys under it."""
         torch = self.torch
         from repro_torch.kernels import distance, ref
 
         m, d = q.shape
         n = x.shape[0]
         name = "pairwise_distance.bf16" if q.dtype == torch.bfloat16 else "pairwise_distance"
-        ms = self.profile.time_ms([lambda: distance.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
-        plain_ms = self.profile.time_ms([lambda: ref.pairwise_distance(q, x, "l2", x_sq_norms=xn)] * 12)
+        ms = self.profile.time_ms([lambda: distance.pairwise_distance(q, x, metric, x_sq_norms=xn)] * 12)
+        plain_ms = self.profile.time_ms([lambda: ref.pairwise_distance(q, x, metric, x_sq_norms=xn)] * 12)
         # the product alone in IEEE fp32 (TF32 is off), and the library's
         # own distance, which takes square roots and reduces its own norms
         qf, xf = q.float(), x.float()
@@ -741,11 +789,11 @@ class Smoke:
         nbytes = q.element_size() * (m * d + n * d) + 4 * ((0 if xn is None else n) + m * n)
         b, how = self.profile.bound_ms(nbytes, 2 * m * n * d,
                                        "bf16" if name.endswith(".bf16") else "fp32")
-        print(f"{name} m={m} n={n} d={d}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+        print(f"{name} m={m} n={n} d={d} {metric}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"torch.mm {mm_ms:.6f} ms, torch.cdist {cdist_ms:.6f} ms, bound {b:.6f} ms ({how})",
               flush=True)
         if prefix is not None:
-            shape = f"m={m} n={n} d={d} {'cached' if xn is not None else 'uncached'} l2"
+            shape = f"m={m} n={n} d={d} {'cached' if xn is not None else 'uncached'} {metric}"
             rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how, library_ms=mm_ms,
                        cdist_ms=cdist_ms, shape=shape)
             self.rec[name].update({prefix + k: v for k, v in rec.items()})
@@ -811,24 +859,31 @@ class Smoke:
                                            probes=P, **kw)
             what = (f"{metric} B={B} C={C} e={e} H={H} step {step} "
                     f"{'int' if integer else 'float'}")
-            # the hash ids and comps never depend on distance values
-            for i, field in ((3, "vis_ids"), (5, "comps")):
-                self.compare(name, got[i], want[i], exact=True, what=f"{what} {field}")
-            for i, field in ((1, "beam_dist"), (4, "vis_dist")):
-                self.compare(name, got[i], want[i], exact=exact, what=f"{what} {field}")
             # which ids win the beam depends on the distances' last bits
             # where they are not exact (int8 l1/chi2 sums its dequantized
             # elements in another order)
-            if integer and (exact or precision == "fp32"):
-                for i, field in ((0, "beam_ids"), (2, "beam_exp")):
-                    self.compare(name, got[i], want[i], exact=True, what=f"{what} {field}")
+            self.compare_expand(name, got, want, what, exact=exact,
+                                beam_ids=integer and (exact or precision == "fp32"))
             state = (cands.roll(1, dims=1),) + tuple(want[:5])
 
-    def time_expand(self, x, q, sq, state, P, enc, precision, prefix=""):
+    def compare_expand(self, name, got, want, what, *, exact, beam_ids):
+        """One expansion step's outputs, kernel against plain: the hash ids
+        and comps exactly (they never depend on distance values), the
+        distances bit for bit where ``exact`` and to the tolerance
+        elsewhere, the beam's ids and flags where ``beam_ids``."""
+        for i, field in ((3, "vis_ids"), (5, "comps")):
+            self.compare(name, got[i], want[i], exact=True, what=f"{what} {field}")
+        for i, field in ((1, "beam_dist"), (4, "vis_dist")):
+            self.compare(name, got[i], want[i], exact=exact, what=f"{what} {field}")
+        if beam_ids:
+            for i, field in ((0, "beam_ids"), (2, "beam_exp")):
+                self.compare(name, got[i], want[i], exact=True, what=f"{what} {field}")
+
+    def time_expand(self, x, q, sq, state, P, enc, precision, prefix="", metric="l2"):
 
         name = kernel_name("fused_expand", precision)
         cands, bi, bd, be, vi, vd = state
-        kw = dict(metric="l2", sq_norms=sq, enc=enc, precision=precision)
+        kw = dict(metric=metric, sq_norms=sq, enc=enc, precision=precision)
         # every call gets its own copy of the hash it updates in place: 12
         # calls (2 warm-up), fewer where the copies would pass 8 GB (the
         # mesh's sides, 4-8 GB a hash), never under 3
@@ -852,9 +907,10 @@ class Smoke:
         nbytes = self.profile.expand_bytes(B, C, e, d, P, precision, fresh, valid, inserted)
         b, how = self.profile.bound_ms(nbytes, 2 * d * fresh)
         rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how,
-                   shape=f"B={B} C={C} e={e} H={vi.shape[1]} P={P} d={d}")
+                   shape=f"B={B} C={C} e={e} H={vi.shape[1]} P={P} d={d}"
+                   + ("" if metric == "l2" else f" {metric}"))
         self.rec[name].update({prefix + k: v for k, v in rec.items()}, library_ms=None)
-        print(f"{name} B={B} C={C} e={e} H={vi.shape[1]} P={P} d={d} "
+        print(f"{name} B={B} C={C} e={e} H={vi.shape[1]} P={P} d={d} {metric} "
               f"(fresh {fresh}, inserted {inserted}): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"bound {b:.6f} ms ({how})", flush=True)
 
@@ -1976,6 +2032,359 @@ class Smoke:
         check(recall_p >= self.recall_par - 0.02,
               f"phase 8c: recall@10 {recall_p:.4f} < phase 7a {self.recall_par:.4f} - 0.02")
 
+    # ---------------------------------------------------------------- phase 9
+    def phase_recsys(self):
+        """9: the recommender serving path at the published widths: (a) each
+        arch's scoring at serve_p99, serve_bulk and retrieval_cand against
+        the CPU in float64, (b) the MIND table's first 10^6 rows as an ip
+        index serving 256 users' interests (kernels against plain, against
+        brute, churn), with the three kernels held against plain at the
+        shapes that path gave them, (c) the example at its own size."""
+        torch = self.torch
+        for arch in RECSYS_ARCHS:
+            params, cfg = self.recsys_scoring(arch)
+            if arch != "mind":
+                del params
+                torch.cuda.empty_cache()
+        self.mind_index(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        self.retrieval_example()
+
+    def recsys_scoring(self, arch):
+        """9a: one arch at ``full_config()``, parameters drawn on the card;
+        ``serve_scores`` at serve_p99 and serve_bulk (in row chunks) from
+        ``recsys_data`` batches, then the arch's retrieval_cand scorer over
+        10^6 candidates.  Returns (params, cfg)."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.data import recsys_data
+        from repro_torch.models import common, recsys
+
+        mod = configs.get(arch)
+        cfg = mod.full_config()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = recsys.init_params(self.gen(RECSYS_PARAM_SEED), cfg)
+        torch.cuda.synchronize()
+        n_par = common.count_params(params)
+        print(f"phase 9a: {arch} full_config(): {n_par} parameters ({4 * n_par / 2**30:.3f} GiB) "
+              f"drawn on the card in {time.perf_counter() - t0:.3f} s", flush=True)
+        g = self.gen(RECSYS_DATA_SEED)
+        ctr = arch in ("deepfm", "xdeepfm")
+        # the warm-up call scores the first two row chunks
+        w = 2 * recsys.default_chunk(cfg)
+
+        def serve(p, b):
+            return recsys.serve_scores(p, b, cfg)
+
+        for shape in ("serve_p99", "serve_bulk"):
+            B = mod.SHAPES[shape]["batch"]
+            batch = (recsys_data.ctr_batch(g, B, cfg.n_sparse, cfg.vocab_per_field) if ctr else
+                     recsys_data.behavior_batch(g, B, cfg.seq_len, cfg.vocab_per_field))
+            scores = self.timed_scores(arch, shape, serve, params, batch,
+                                       {k: v[:w] for k, v in batch.items()}, B)
+            self.check_scores(arch, shape, scores, params, cfg,
+                              {k: v[:CHECK_ROWS] for k, v in batch.items()}, serve)
+            del batch, scores
+        N = mod.SHAPES["retrieval_cand"]["n_candidates"]
+        if arch == "mind":
+            rb = recsys_data.retrieval_batch(g, N, cfg.embed_dim, seq_len=cfg.seq_len,
+                                             vocab=cfg.vocab_per_field)
+            head = {"hist": rb["hist"], "candidates": rb["candidates"][:CHECK_ROWS]}
+            warm = {"hist": rb["hist"], "candidates": rb["candidates"][:w]}
+
+            def fn(p, b):
+                return recsys.retrieval_scores(p, b["hist"], b["candidates"], cfg)
+        else:
+            if ctr:
+                user = recsys_data.ctr_batch(g, 1, cfg.n_sparse, cfg.vocab_per_field)
+                rb = {"dense": user["dense"], "sparse": user["sparse"]}
+            else:
+                rb = {"hist": recsys_data.zipf_ids(g, (1, cfg.seq_len), cfg.vocab_per_field)}
+            rb["cand"] = recsys_data.zipf_ids(g, (N,), cfg.vocab_per_field)
+            head = {**rb, "cand": rb["cand"][:CHECK_ROWS]}
+            warm = {**rb, "cand": rb["cand"][:w]}
+            scorer = recsys.ctr_retrieval_scores if ctr else recsys.bst_retrieval_scores
+
+            def fn(p, b):
+                return scorer(p, b, cfg)
+        scores = self.timed_scores(arch, "retrieval_cand", fn, params, rb, warm, N)
+        self.check_scores(arch, "retrieval_cand", scores, params, cfg, head, fn)
+        return params, cfg
+
+    def timed_scores(self, arch, shape, fn, params, batch, warm, n):
+        """``fn(params, batch)`` timed to its synchronize after a warm-up
+        call on the rows ``warm``, with the peak memory it reached; the
+        scores must be n finite values."""
+        torch = self.torch
+        fn(params, warm)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        check(tuple(out.shape) == (n,), f"{arch} {shape}: scores of shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{arch} {shape}: non-finite scores")
+        print(f"phase 9a: {arch} {shape} ({n} rows): {ms:.3f} ms, peak {peak / 2**30:.3f} GiB "
+              f"({(peak - base) / 2**30:.3f} GiB over the parameters and inputs)", flush=True)
+        return out
+
+    def check_scores(self, arch, shape, scores, params, cfg, head, fn):
+        """The card's first ``CHECK_ROWS`` scores against ``fn`` on the same
+        parameters and input rows (``head``) on the CPU in float64."""
+        torch = self.torch
+        from repro_torch.models import recsys
+
+        ids = [recsys.field_ids(v, cfg).reshape(-1) if k == "sparse" else v.reshape(-1).long()
+               for k, v in head.items() if not v.is_floating_point()]
+        ids = torch.cat(ids)
+        p64 = self.cpu64(params, torch.unique(ids[ids >= 0]))
+        b64 = {k: v.to("cpu", torch.float64) if v.is_floating_point() else v.cpu()
+               for k, v in head.items()}
+        want = fn(p64, b64)
+        got = scores[:CHECK_ROWS].to("cpu", torch.float64)
+        err = (got - want).abs()
+        worst = float((err / (SCORE_ATOL + SCORE_RTOL * want.abs())).max())
+        print(f"phase 9a: {arch} {shape}: first {got.numel()} scores against the CPU in float64: "
+              f"max abs err {float(err.max()):.3e} ({worst:.3f} of the tolerance rtol={SCORE_RTOL}, "
+              f"atol={SCORE_ATOL})", flush=True)
+        check(worst <= 1.0, f"{arch} {shape}: card scores differ from the CPU's float64 by "
+                            f"{float(err.max()):.3e}")
+
+    def cpu64(self, tree, rows):
+        """``tree`` on the CPU in float64.  Of each table only ``rows`` are
+        copied, into a tensor whose other rows are left unset: the checked
+        rows' lookups read no other row, and a whole 10^7-row table in
+        float64 would take 5 GB of host memory for 256 rows."""
+        torch = self.torch
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = self.cpu64(v, rows)
+            elif k in ("table", "lin_table"):
+                t = torch.empty(tuple(v.shape), dtype=torch.float64)
+                t[rows.cpu()] = v[rows].to("cpu", torch.float64)
+                out[k] = t
+            else:
+                out[k] = v.to("cpu", torch.float64)
+        return out
+
+    @contextlib.contextmanager
+    def capture(self, shapes, out):
+        """Within the block, keep the arguments of one call of an ``ops``
+        function for each label of ``shapes`` (label -> (function name,
+        rows of its first argument)): its ``CAPTURE_CALL``-th call at those
+        rows, a search some steps in.  Tensors are copied before the call
+        (the expansion updates its hash in place), except the item table,
+        which no call writes."""
+        import inspect
+
+        torch = self.torch
+        saved, seen = {}, {}
+        for name in {fn for fn, _ in shapes.values()}:
+            saved[name] = getattr(self.ops, name)
+
+            def wrapper(*args, _fn=saved[name], _name=name, **kw):
+                for label, (fname, rows) in shapes.items():
+                    if fname != _name or rows != args[0].shape[0] or label in out:
+                        continue
+                    seen[label] = seen.get(label, 0) + 1
+                    if seen[label] == CAPTURE_CALL:
+                        bound = inspect.signature(_fn).bind(*args, **kw)
+                        bound.apply_defaults()
+                        out[label] = {k: v.clone() if torch.is_tensor(v) and v.numel() < 1 << 24
+                                      else v for k, v in bound.arguments.items()}
+                return _fn(*args, **kw)
+
+            setattr(self.ops, name, wrapper)
+        try:
+            yield out
+        finally:
+            for name, fn in saved.items():
+                setattr(self.ops, name, fn)
+
+    def serve_users(self, index, interests):
+        """One ``retrieve`` per user (top-20 of its interests at beam 48,
+        entry points seeded by the user): (ids on the host, seconds per
+        request to the ids on the host, comps per query)."""
+        from repro_torch.serve import retrieval
+
+        got, secs, comps = [], [], []
+        for u, q in enumerate(interests):
+            t0 = time.perf_counter()
+            ids, _, res = retrieval.retrieve(index, q, MIND_TOP_K, beam=MIND_BEAM,
+                                             generator=self.gen(MIND_QUERY_SEED + u),
+                                             with_stats=True)
+            ids = ids.cpu()
+            secs.append(time.perf_counter() - t0)
+            got.append(ids)
+            comps.append(float(res.n_comps.float().mean()))
+        return got, secs, comps
+
+    def mind_index(self, params, cfg):
+        """9b: the MIND table's first 10^6 rows, L2-normalised, indexed with
+        ``retrieval.build_index(metric="ip")``; 256 users' ``behavior_batch``
+        histories through ``mind_interests`` (normalised) served through the
+        kernels, against ``retrieve_brute`` and against the same requests
+        through the plain versions; churn; then each kernel held against its
+        plain version at the shapes this path gave it."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.data import recsys_data
+        from repro_torch.models import recsys
+        from repro_torch.serve import retrieval
+
+        def normalize(v):
+            return v / v.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+
+        items = normalize(params["table"][:MIND_ROWS])
+        K = cfg.n_interests
+        shapes = {"build_gather": ("gather_distance", MIND_WAVE),
+                  "serve_gather": ("gather_distance", K),
+                  "build_expand": ("expand_step", MIND_WAVE),
+                  "serve_expand": ("expand_step", K),
+                  "build_tile": ("pairwise_distance", MIND_WAVE),
+                  "brute_tile": ("pairwise_distance", K)}
+        captured = {}
+        self.ops.reset_launch_counts()
+        with self.capture(shapes, captured):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index = retrieval.build_index(items, k=MIND_K, metric="ip", wave=MIND_WAVE,
+                                          beam=MIND_BUILD_BEAM, capacity=MIND_ROWS + MIND_CHURN,
+                                          generator=self.gen(MIND_INDEX_SEED), device=self.dev)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            at_build = self.ops.launch_counts()
+            hist = recsys_data.behavior_batch(self.gen(MIND_USER_SEED), MIND_USERS, cfg.seq_len,
+                                              cfg.vocab_per_field)["hist"]
+            interests = normalize(recsys.mind_interests(params, hist, cfg))
+            got, secs, comps = self.serve_users(index, interests)
+            at_serve = self.ops.launch_counts()
+            t0 = time.perf_counter()
+            exact = [retrieval.retrieve_brute(index, q, MIND_TOP_K)[0].cpu() for q in interests]
+            t_brute = time.perf_counter() - t0
+            fresh = normalize(torch.randn((MIND_CHURN, cfg.embed_dim),
+                                          generator=self.gen(MIND_FRESH_SEED), device=self.dev))
+            victims = torch.randperm(MIND_ROWS, generator=self.gen(MIND_VICTIM_SEED),
+                                     device=self.dev)[:MIND_CHURN]
+            t0 = time.perf_counter()
+            churned = retrieval.remove_items(retrieval.add_items(index, fresh), victims)
+            torch.cuda.synchronize()
+            t_churn = time.perf_counter() - t0
+            after, secs_after, _ = self.serve_users(churned, interests[:MIND_AFTER_USERS])
+        self.path_counts("retrieval", f"phase 9b's MIND index path (build, {MIND_USERS} requests, "
+                                      f"brute, churn, {MIND_AFTER_USERS} requests)")
+        print("phase 9b: fp32 launches in the build / in the first "
+              f"{MIND_USERS} requests: "
+              + ", ".join(f"{k} {at_build[k]} / {at_serve[k] - at_build[k]}" for k in FP32_KERNELS),
+              flush=True)
+        print(f"phase 9b: MIND table's first {MIND_ROWS} rows (d={cfg.embed_dim}, ip, k={MIND_K}, "
+              f"W={MIND_WAVE}, beam {MIND_BUILD_BEAM}) indexed in {t_build:.3f} s "
+              f"({MIND_ROWS / t_build:.1f} rows/s)", flush=True)
+        overlap = np.array([len(set(a.tolist()) & set(b.tolist())) / MIND_TOP_K
+                            for a, b in zip(got, exact)])
+        ms = np.sort(np.array(secs)) * 1e3
+        print(f"phase 9b: {MIND_USERS} users x {K} interests, top-{MIND_TOP_K} at beam {MIND_BEAM}: "
+              f"overlap@{MIND_TOP_K} with brute mean {overlap.mean():.4f}, min {overlap.min():.4f}; "
+              f"p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms per request; "
+              f"comps/query {np.mean(comps):.1f}; retrieve_brute {t_brute:.3f} s for all "
+              f"{MIND_USERS}", flush=True)
+        check(all(ids.numel() == MIND_TOP_K and ids.unique().numel() == MIND_TOP_K for ids in got),
+              "a request returned fewer than top-k distinct ids")
+        check(churned.capacity == MIND_ROWS + MIND_CHURN,
+              f"the churn grew the index to {churned.capacity} rows")
+        vict = victims.cpu()
+        leaked = sum(int(torch.isin(ids, vict).sum()) for ids in after)
+        check(leaked == 0, f"{leaked} withdrawn ids served after the churn")
+        ms_after = np.sort(np.array(secs_after)) * 1e3
+        print(f"phase 9b: churn +{MIND_CHURN} / -{MIND_CHURN} in {t_churn:.3f} s, then the first "
+              f"{len(after)} requests again: p50 {np.percentile(ms_after, 50):.3f} ms, no "
+              f"withdrawn id served",
+              flush=True)
+        with self.plain_versions():
+            t0 = time.perf_counter()
+            plain, _, _ = self.serve_users(index, interests)
+            t_plain = time.perf_counter() - t0
+        same = sum(torch.equal(a, b) for a, b in zip(got, plain))
+        print(f"phase 9b: the same {MIND_USERS} requests through the plain versions on the card "
+              f"({t_plain:.3f} s, kernels {sum(secs):.3f} s): {same} of {MIND_USERS} return the "
+              f"same ids", flush=True)
+        check(same == MIND_USERS, f"{MIND_USERS - same} requests differ between kernels and plain")
+        self.check_captured(captured)
+
+    def check_captured(self, captured):
+        """Each kernel against its plain version on the arguments the MIND
+        path gave it, then timed at those shapes (gathers over cold sets of
+        random rows and ids of the same shape)."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+
+        for label in ("build_gather", "serve_gather", "build_expand", "serve_expand",
+                      "build_tile", "brute_tile"):
+            check(label in captured, f"phase 9b: no call of {label}'s shape was seen")
+            a = captured[label]
+            prefix = "mind_" + label.split("_")[0] + "_"
+            if label.endswith("gather"):
+                q, x, idx, metric = a["q"], a["x"], a["idx"], a["metric"]
+                kw = dict(sq_norms=a["sq_norms"])
+                self.compare("gather_distance", self.ops.gather_distance(q, x, idx, metric, **kw),
+                             ref.gather_distance(q, x, idx, metric, **kw), exact=False,
+                             what=f"phase 9 {label} B={q.shape[0]} C={idx.shape[1]} {metric}")
+                # cold sets: unit queries and ids over the indexed rows
+                g = self.gen(80 + q.shape[0])
+                B, C = idx.shape
+                sets = [(torch.nn.functional.normalize(
+                             torch.randn((B, x.shape[1]), generator=g, device=self.dev), dim=1),
+                         torch.randint(0, MIND_ROWS, (B, C), generator=g, device=self.dev).int())
+                        for _ in range(self.bench.COLD_SETS + 2)]
+                self.time_gather(x, sets, "fp32", prefix=prefix, metric=metric)
+            elif label.endswith("expand"):
+                args = [a[k] for k in ("q", "x", "cands", "beam_ids", "beam_dist", "beam_exp",
+                                       "vis_ids", "vis_dist")]
+                kw = dict(metric=a["metric"], sq_norms=a["sq_norms"])
+                got = self.ops.expand_step(*args[:6], args[6].clone(), args[7].clone(),
+                                           hash_probes=a["hash_probes"], **kw)
+                want = self.plain_expand(*args[:6], args[6].clone(), args[7].clone(),
+                                         probes=a["hash_probes"], **kw)
+                B, C = args[2].shape
+                self.compare_expand("fused_expand", got, want,
+                                    f"phase 9 {label} B={B} C={C} {a['metric']}",
+                                    exact=False, beam_ids=False)
+                self.time_expand(args[1], args[0], a["sq_norms"], tuple(args[2:]),
+                                 a["hash_probes"], None, "fp32", prefix=prefix, metric=a["metric"])
+            else:
+                q, x, metric, xn = a["q"], a["x"], a["metric"], a["x_sq_norms"]
+                self.compare("pairwise_distance",
+                             self.ops.pairwise_distance(q, x, metric, x_sq_norms=xn),
+                             ref.pairwise_distance(q, x, metric, x_sq_norms=xn), exact=False,
+                             what=f"phase 9 {label} m={q.shape[0]} n={x.shape[0]} {metric}")
+                self.time_pairwise(q, x, xn, prefix=prefix, metric=metric)
+        print("phase 9b: gather, expansion and pairwise at the MIND path's shapes (d=64, ip; "
+              "build B=4096, serving B=4): kernels agree with plain", flush=True)
+
+    def retrieval_example(self):
+        """9c: ``examples/retrieval_serving_torch.py`` at its own size on the
+        card (8,000 items, d=16, W=512): mean overlap@20 with exact
+        retrieval >= ``EXAMPLE_OVERLAP``, no withdrawn item after its churn."""
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "retrieval_serving_torch", ROOT / "examples" / "retrieval_serving_torch.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        rec = example.main([])
+        print(f"phase 9c: examples/retrieval_serving_torch.py on {rec['device']}: "
+              f"{rec['n_items']} items, overlap@20 mean {rec['overlap_mean']:.4f}, "
+              f"min {rec['overlap_min']:.4f}, build {rec['build_s']:.3f} s", flush=True)
+        check(rec["overlap_mean"] >= EXAMPLE_OVERLAP,
+              f"the example's mean overlap@20 {rec['overlap_mean']:.4f} < {EXAMPLE_OVERLAP}")
+
     def kernel_records(self):
         out = []
         for name, (source, replaces) in KERNELS.items():
@@ -1991,7 +2400,7 @@ class Smoke:
             # shape, and the large-C shape
             rec.update({k: v for k, v in r.items()
                         if k in ("warm_ms", "floor_ms", "index_select_ms")
-                        or k.startswith(("large_c_", "serve_", "merge_", "router_"))})
+                        or k.startswith(("large_c_", "serve_", "merge_", "router_", "mind_"))})
             if name in self.serve_launches:
                 rec["serve_launches"] = self.serve_launches[name]
             for path, counts in self.path_launches.items():

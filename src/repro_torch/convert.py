@@ -5,8 +5,9 @@
 ``graph_to_numpy`` goes the other way; ``coarse_from_numpy`` and
 ``coarse_to_numpy`` do the same for a ``CoarseLevel``;
 ``build_config_from_dict`` carries a reference ``BuildConfig.__dict__``;
-``encoded_from_numpy`` carries a reference ``EncodedData``.  Nothing here
-imports the reference.
+``encoded_from_numpy`` carries a reference ``EncodedData``;
+``recsys_params_from_numpy`` and ``recsys_params_to_numpy`` carry a
+recommender model's parameter tree.  Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -105,3 +106,42 @@ def encoded_from_numpy(fields: dict, device="cpu") -> EncodedData:
         return torch.from_numpy(a.copy()).to(device)
 
     return EncodedData(**{name: tensor(fields.get(name)) for name in EncodedData._fields})
+
+
+def recsys_params_from_numpy(tree: dict, cfg, device="cpu") -> dict:
+    """A reference recommender parameter tree (nested dicts of numpy
+    leaves) -> the port's parameter dict, each leaf in ``cfg.param_dtype``
+    on ``device``.  The tree must hold the leaves, of the shapes, that the
+    port's ``recsys.init_params`` makes for ``cfg``; raises naming the first
+    that differs."""
+    from repro_torch.models import recsys
+
+    # the tree's layout from a one-id-per-field copy; tables scale with it
+    want = recsys.init_params(torch.Generator().manual_seed(0),
+                              dataclasses.replace(cfg, vocab_per_field=1))
+    rows = cfg.total_rows if cfg.name in ("deepfm", "xdeepfm") else cfg.vocab_per_field
+    dt = getattr(torch, cfg.param_dtype)
+
+    def carry(node, spec, path):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict) or set(node) != set(spec):
+                got = sorted(node) if isinstance(node, dict) else type(node).__name__
+                raise ValueError(f"{cfg.name} params{path}: keys {got} != {sorted(spec)}")
+            return {k: carry(node[k], spec[k], f"{path}[{k!r}]") for k in spec}
+        a = np.asarray(node)
+        shape = tuple(spec.shape)
+        if path in ("['table']", "['lin_table']"):
+            shape = (rows,) + shape[1:]
+        if a.shape != shape:
+            raise ValueError(f"{cfg.name} params{path}: shape {a.shape} != {shape}")
+        return torch.from_numpy(a.copy()).to(device=device, dtype=dt)
+
+    return carry(tree, want, "")
+
+
+def recsys_params_to_numpy(params: dict) -> dict:
+    """The port's recommender parameter dict -> nested dicts of numpy
+    arrays, the reference's tree layout."""
+    if isinstance(params, dict):
+        return {k: recsys_params_to_numpy(v) for k, v in params.items()}
+    return params.detach().cpu().numpy()

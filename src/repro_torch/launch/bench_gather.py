@@ -118,9 +118,9 @@ def timing_sets(shape: str, x: torch.Tensor) -> list:
     return [draw(x, k) for k in range(COLD_SETS + 2)]
 
 
-def measure(x, sets, precision: str) -> dict:
+def measure(x, sets, precision: str, metric: str = "l2") -> dict:
     """Kernel (cold and warm), floor, index_select and plain times and the
-    bound of the gather under l2 over the (q, idx) ``sets``
+    bound of the gather under ``metric`` over the (q, idx) ``sets``
     (``timing_sets``)."""
     sq = squared_norms(x)
     enc = encode_dataset(x, precision)
@@ -134,13 +134,13 @@ def measure(x, sets, precision: str) -> dict:
     time_ms = profile_build.time_ms
     return {
         "precision": precision, "B": B, "C": C, "d": d, "n": x.shape[0],
-        "ms": time_ms([lambda q=q, idx=idx: ops.gather_distance(q, x, idx, "l2", **kw)
+        "ms": time_ms([lambda q=q, idx=idx: ops.gather_distance(q, x, idx, metric, **kw)
                        for q, idx in sets]),
-        "warm_ms": time_ms([lambda: ops.gather_distance(q0, x, idx0, "l2", **kw)] * 22),
+        "warm_ms": time_ms([lambda: ops.gather_distance(q0, x, idx0, metric, **kw)] * 22),
         "floor_ms": time_ms([lambda: gather_dist.gather_floor(
-            q0, table, idx0, "l2", sq_norms=sq, row_scale=scale)] * 22),
+            q0, table, idx0, metric, sq_norms=sq, row_scale=scale)] * 22),
         "index_select_ms": time_ms([lambda f=f: table.index_select(0, f) for f in flats]),
-        "plain_ms": time_ms([lambda q=q, idx=idx: ref.gather_distance(q, x, idx, "l2", **kw)
+        "plain_ms": time_ms([lambda q=q, idx=idx: ref.gather_distance(q, x, idx, metric, **kw)
                              for q, idx in sets[:PLAIN_SETS + 2]]),
         "bound_ms": sum(b for b, _ in bounds) / len(bounds), "bound_by": bounds[0][1],
     }

@@ -141,7 +141,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mode == "lm":
         raise NotImplementedError(
-            "--mode lm needs the model substrate, not ported yet (ROADMAP Queue A item 13)")
+            "--mode lm needs the model substrate, not ported yet (ROADMAP Queue A item 13c)")
     return serve_retrieval(args)
 
 

@@ -36,15 +36,18 @@ def build_index(
     wave: int = 512,
     capacity: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
+    seed_fn: Optional[construct.SeedFn] = None,
     beam: int = 40,
     precision: str = "fp32",
     device=None,
 ) -> OnlineIndex:
-    """Index a candidate bank with the online LGD build."""
+    """Index a candidate bank with the online LGD build; entry points from
+    ``seed_fn`` (build-shaped), else from ``generator``."""
     cfg = construct.BuildConfig(
         k=k, metric=metric, wave=wave, lgd=True, beam=beam, precision=precision
     )
-    return OnlineIndex.build(items, cfg, capacity=capacity, generator=generator, device=device)
+    return OnlineIndex.build(items, cfg, capacity=capacity, generator=generator,
+                             seed_fn=seed_fn, device=device)
 
 
 def _merge_queries(ids: torch.Tensor, dist: torch.Tensor, top_k: int, metric: str):

@@ -577,3 +577,77 @@ def test_nndescent_build_kernel_matches_plain(card, monkeypatch):
     g_p, st_p = nndescent.build(x, cfg, TorchDraws(11), device=card)
     _graph_fields_equal(g_k, g_p)
     assert st_k == st_p
+
+
+def test_mind_index_kernels_match_plain(card, monkeypatch):
+    """The recommender serving path on integer-valued items under ip: an
+    index build, one request's retrieval (4 interests, top-20 at beam 48),
+    churn and the brute answer, through the kernels and the plain versions:
+    the same graph and answers."""
+    from repro_torch.serve import retrieval
+
+    items = _data((3000, 16), 38, "ip", True, card) - 4.0
+    q = _data((4, 16), 39, "ip", True, card) - 4.0
+    new = _data((100, 16), 40, "ip", True, card) - 4.0
+
+    def run():
+        idx = retrieval.build_index(items, k=16, metric="ip", wave=512, capacity=3200,
+                                    generator=torch.Generator(device=card).manual_seed(1),
+                                    device=card)
+        out = [retrieval.retrieve(idx, q, 20, beam=48), retrieval.retrieve_brute(idx, q, 20)]
+        idx = retrieval.remove_items(retrieval.add_items(idx, new), torch.arange(50, device=card))
+        return idx, out + [retrieval.retrieve(idx, q, 20, beam=48)]
+
+    ops.reset_launch_counts()
+    i_k, a_k = run()
+    counts = ops.launch_counts()
+    assert all(counts[n] > 0 for n in ("gather_distance", "fused_expand", "pairwise_distance"))
+    _route_plain(monkeypatch)
+    i_p, a_p = run()
+    _graph_fields_equal(i_k.graph, i_p.graph)
+    for (ids_k, s_k), (ids_p, s_p) in zip(a_k, a_p):
+        assert torch.equal(ids_k, ids_p) and torch.equal(s_k, s_p)
+    assert not torch.isin(a_k[2][0], torch.arange(50, device=card)).any()
+
+
+@pytest.mark.parametrize("arch", ["deepfm", "xdeepfm", "bst", "mind"])
+def test_recsys_scores_on_the_card_match_the_cpu(card, arch):
+    """Each arch's serve and retrieval scorers at ``smoke_config()`` on the
+    card against the same parameters and inputs on the CPU, to rtol 1e-5,
+    atol 1e-6 (fp32 sums in another order)."""
+    from repro_torch import configs
+    from repro_torch.data import recsys_data
+    from repro_torch.models import recsys
+
+    cfg = configs.get(arch).smoke_config()
+    g = torch.Generator().manual_seed(3)
+    params = recsys.init_params(g, cfg)
+    if arch in ("deepfm", "xdeepfm"):
+        batch = recsys_data.ctr_batch(g, 300, cfg.n_sparse, cfg.vocab_per_field)
+        rb = {"dense": batch["dense"][:1], "sparse": batch["sparse"][:1],
+              "cand": recsys_data.zipf_ids(g, (700,), cfg.vocab_per_field)}
+
+        def score(p, b):
+            return recsys.ctr_retrieval_scores(p, b, cfg, chunk=256)
+    else:
+        batch = recsys_data.behavior_batch(g, 300, cfg.seq_len, cfg.vocab_per_field)
+        if arch == "bst":
+            rb = {"hist": batch["hist"][:1], "cand": recsys_data.zipf_ids(g, (700,), cfg.vocab_per_field)}
+
+            def score(p, b):
+                return recsys.bst_retrieval_scores(p, b, cfg, chunk=256)
+        else:
+            rb = recsys_data.retrieval_batch(g, 700, cfg.embed_dim, seq_len=cfg.seq_len,
+                                             vocab=cfg.vocab_per_field)
+
+            def score(p, b):
+                return recsys.retrieval_scores(p, b["hist"], b["candidates"], cfg)
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(card) for k, v in tree.items()}
+
+    for fn, b in ((lambda p, b: recsys.serve_scores(p, b, cfg, chunk=128), batch), (score, rb)):
+        got = fn(to(params), to(b)).cpu()
+        want = fn(params, b)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

@@ -47,20 +47,55 @@ def test_no_jax_or_reference_package_in_sys_modules():
 
 def test_isolation_check_covers_every_module():
     """The subprocess above imports every module of the package, the mesh,
-    checkpoint, distributed and build-variant modules among them."""
+    checkpoint, distributed, build-variant and recommender modules among
+    them."""
     mods = _modules()
     for name in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
                  "repro_torch.train.checkpoint", "repro_torch.configs.knn_olg",
-                 "repro_torch.data.synthetic", "repro_torch.launch.build_graph"):
+                 "repro_torch.data.synthetic", "repro_torch.launch.build_graph",
+                 "repro_torch.models.common", "repro_torch.models.embedding",
+                 "repro_torch.models.recsys", "repro_torch.configs.recsys_shapes",
+                 "repro_torch.configs.deepfm", "repro_torch.configs.xdeepfm",
+                 "repro_torch.configs.bst", "repro_torch.configs.mind",
+                 "repro_torch.data.recsys_data", "repro_torch.convert"):
         assert name in mods, name
 
 
-def test_chip_smoke_imports_no_jax():
-    text = (ROOT / "chip_smoke.py").read_text()
+def _assert_imports_no_jax(path):
+    text = (ROOT / path).read_text()
     for line in text.splitlines():
         words = line.replace(",", " ").split()
         if words[:1] in (["import"], ["from"]):
             assert "jax" not in words[1] and words[1].split(".")[0] != "repro", line
+
+
+def test_chip_smoke_imports_no_jax():
+    _assert_imports_no_jax("chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", ["examples/retrieval_serving_torch.py",
+                                  "src/repro_torch/configs/__init__.py"])
+def test_example_and_registry_sources_import_no_jax(path):
+    _assert_imports_no_jax(path)
+
+
+def test_example_and_registry_import_no_jax():
+    """The port's example and registry, imported in a fresh process, bring
+    in neither JAX nor the reference package."""
+    example = str(ROOT / "examples" / "retrieval_serving_torch.py")
+    code = (
+        "import importlib.util, sys\n"
+        "import repro_torch.configs as c\n"
+        "[c.get(a) for a in c.names()]\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {example!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.fixture

@@ -114,6 +114,13 @@ class JaxDraws:
         return torch.from_numpy(np.array(jax.random.permutation(self.key, n))).to(device)
 
 
+def mind_routing_init(S: int, K: int) -> torch.Tensor:
+    """The reference's fixed MIND routing logits for histories of length S
+    (``repro.models.recsys.capsule_routing``: ``normal(PRNGKey(7), (1, S,
+    K))``), as the port's ``routing_init(S, K)``."""
+    return torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(7), (1, S, K))[0]))
+
+
 def draws(seed: int) -> JaxDraws:
     return JaxDraws(jax.random.PRNGKey(seed))
 
