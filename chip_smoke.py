@@ -41,7 +41,15 @@ needs one NVIDIA card and runs, in order:
    e=64, H=2048 and the seed gather of a shard's search (B=4, C=8 over a
    250,000-row shard).  The bf16-operand ``pairwise_distance`` is held
    against its plain version at the small shapes and at the 4,096² tile
-   (bit for bit on integer rows) and timed there beside the fp32 kernel;
+   (bit for bit on integer rows) and timed there beside the fp32 kernel.
+   (2e) The kernels at d=3, atom positions: the atom graph's build (k=8,
+   l2, LGD, W=1024) over 24,576 atoms at integer positions in [0, 64)^3 and
+   its exact graph, through the kernels and through the plain versions from
+   the same draws, every graph array, counter and exact id identical; then
+   each kernel against its plain version, bit for bit, on arguments that
+   build gave it (``Smoke.capture``: the seed gather B=1024, C=8, an
+   expansion B=1024, C=24, the 1,024² intra-wave tile and an 24,576×8,192
+   tile of the exact graph), each timed there;
 3. an n=20,000, d=32 integer-valued build with the kernels and the same
    build with the plain versions, from the same injected seeds, at fp32,
    int8 and bf16: every graph array and the counters must be identical.  On
@@ -146,15 +154,36 @@ needs one NVIDIA card and runs, in order:
    build, B=4096, and from a request, B=4: d=64, ip).  (c)
    ``examples/retrieval_serving_torch.py`` at its own size (8,000 items,
    d=16, W=512) with mean overlap@20 >= 0.90;
-10. a ``kernels`` JSON line: each kernel's launches in the build of its own
+10. training on the card: (a) deepfm, xdeepfm, bst and mind at
+   ``full_config()``, AdamW over the shared 65,536-row ``train_batch`` from
+   the skip-ahead loader (xdeepfm in 2 microbatches), the first step on the
+   first 256 rows against the CPU in float64 (the loss, and every gradient
+   leaf within 1e-4 of its largest element), then one warm-up and 3 timed
+   steps (ms per step, peak memory, finite losses); (b) the paper's graph
+   over 10^5 atoms uniform in a box at the example's density (k=8, W=1024):
+   build seconds, scanning rate, launches, edge recall@8 against the exact
+   graph (the pairwise kernel), the same build through the plain versions
+   (recall within 0.01), MACE at full_config("molecule") over its edges
+   (energy and forces timed, peak memory) and against the CPU in float64
+   on a slab of the box, then ``examples/molecule_graphs_torch.py``;
+   (c) MACE training at full_graph_sm (a cora-size ``random_graph``) and
+   molecule (128 molecules, 2-NN edges), AdamW, 5 timed steps each;
+   (d) the two-level data-parallel step on 4 gloo ranks on the one card
+   (2 pods x 2 data ranks, ``_train_rank``), MACE molecule, 20 SGD steps
+   with the pod hop compressed and 20 without: every rank's parameters
+   equal, uncompressed equal to one process within 1e-5 of each leaf's
+   scale, compressed within 0.05 of uncompressed;
+11. a ``kernels`` JSON line: each kernel's launches in the build of its own
    precision (phase 4 for fp32, phase 5 for bf16 and int8, the ``data_bf16``
    build for the bf16-operand pairwise) and, for the three fp32 kernels, in
    the serving run (``serve_launches``) and in each phase 7 and 8 path
    (``parallel_launches``, ``router_launches``, ``merge_shards_launches``,
    ``mesh_build_launches``, ``mesh_search_launches``,
    ``mesh_parallel_launches``, summed over the ranks) and phase 9b's
-   (``retrieval_launches``), its error against the plain version, times and
-   bound (phase 9b's shapes under ``mind_`` keys).
+   (``retrieval_launches``) and phase 10b's atom path (``atom_launches``),
+   its error against the plain version, times and bound (phase 9b's shapes
+   under ``mind_`` keys, phase 2e's d=3 shapes under ``atom_`` and phase
+   10b's exact-graph tile under ``atom_brute_``).
 
 It exits non-zero, printing no result, when any phase fails, when no CUDA
 device is present, or when it is run without the rest of the repository.
@@ -166,6 +195,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -236,6 +266,46 @@ MIND_AFTER_USERS = 64
 # examples/retrieval_serving_torch.py at its own size: mean overlap@20 with
 # exact retrieval, the near-exact top-20 the example claims
 EXAMPLE_OVERLAP = 0.90
+# phase 2e: the kernels at d=3 on an atom build's states: ATOM_INT_N atoms
+# at integer positions in [0, ATOM_INT_HIGH)^3 (a cut of phase 10b's depth,
+# where distances tie often), k=8, l2, LGD, W=1024; three full tiles of the
+# exact graph's 8,192 rows, so the captured (CAPTURE_CALL-th) tile is full
+ATOM_K, ATOM_WAVE, ATOM_INT_N, ATOM_INT_HIGH = 8, 1024, 3 * 8192, 64
+ATOM_INT_SEED, ATOM_BUILD_SEED = 83, 97
+# phase 10: training.  (a) each recommender at full_config() on the shared
+# train_batch (65,536 rows), AdamW, one warm-up and TRAIN_STEPS timed steps;
+# xDeepFM's CIN keeps a (rows, 10, 200*39) product per layer for the backward
+# pass (312 KB a row), so it accumulates over XDEEPFM_ACCUM microbatches of
+# 32,768 rows (about 22 GB of saved products, where one pass would need 45
+# GB of them and 20 GB more while the backward runs).  The first step on the
+# first CHECK_ROWS rows is held against the CPU in float64: the loss within
+# GRAD_RTOL of itself, each gradient leaf within GRAD_RTOL of its largest
+# element (fp32 sums in another order)
+TRAIN_SEED, TRAIN_LR, TRAIN_STEPS, XDEEPFM_ACCUM, GRAD_RTOL = 89, 1e-3, 3, 2, 1e-4
+# (b) the paper's graph under MACE: ATOM_N atoms uniform in a box at the
+# example's density (3,000 atoms in 30^3), k=8, W=1024; MACE at
+# full_config("molecule") over its edges; the CPU's float64 check on the
+# atoms of a slab of ATOM_CUT of the box (about 4,000 atoms), energy and
+# forces within MACE_RTOL of their largest magnitude
+ATOM_N, ATOM_SEED, ATOM_CUT, MACE_RTOL = 100_000, 79, 0.04, 1e-4
+# the exact graph's pairwise tile at real-valued positions, kernel against
+# plain: each distance within ATOM_PAIR_RTOL of |q|^2 + |x|^2 (about 8 fp32
+# ulps: both compute |q|^2 + |x|^2 - 2 q.x, whose three terms and two sums
+# each round within a few ulps of that), and each atom's k exact distances
+# within the same of |q|^2 + max |x|^2
+ATOM_PAIR_RTOL = 1e-6
+ATOM_SIDE = 30.0 * (ATOM_N / 3000) ** (1.0 / 3.0)
+MACE_PARAM_SEED, MACE_DATA_SEED = 101, 103
+# (c) MACE training at full_graph_sm and molecule (MOLECULES of 30 atoms,
+# k=MOL_K nearest neighbours each: 60 edges, the nearest a k-NN list comes
+# to the shape's 64), one warm-up and MACE_STEPS timed steps
+MACE_STEPS, MOLECULES, MOL_K = 5, 128, 2
+# (d) the two-level data-parallel step on DP_RANKS gloo ranks (DP_PODS pods)
+# on the one card: DP_STEPS SGD steps with the pod hop compressed and as
+# many uncompressed; uncompressed equals one process on the whole batch
+# within DP_RTOL of each leaf's largest element, compressed tracks it within
+# DP_TRACK (the reference's bound, tests/test_distributed.py)
+DP_RANKS, DP_PODS, DP_STEPS, DP_LR, DP_RTOL, DP_TRACK = 4, 2, 20, 0.05, 1e-5, 0.05
 
 # the kernels, the CUDA sources that replace the TPU kernels, and the
 # pallas_call sites with the storage type each form takes
@@ -300,10 +370,11 @@ def main() -> int:
     smoke = Smoke(torch)
     t0 = time.perf_counter()
     try:
-        for phase in (smoke.build_kernels, smoke.phase_kernels, smoke.phase_build_parity,
-                      smoke.phase_full, smoke.phase_compressed, smoke.phase_serving,
-                      smoke.phase_parallel, smoke.phase_router, smoke.phase_merge_shards,
-                      smoke.phase_mesh, smoke.phase_recsys):
+        for phase in (smoke.build_kernels, smoke.phase_kernels, smoke.phase_atom_kernels,
+                      smoke.phase_build_parity, smoke.phase_full, smoke.phase_compressed,
+                      smoke.phase_serving, smoke.phase_parallel, smoke.phase_router,
+                      smoke.phase_merge_shards, smoke.phase_mesh, smoke.phase_recsys,
+                      smoke.phase_train):
             phase()
             print(f"  [{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except PhaseError as exc:
@@ -434,6 +505,89 @@ def _mesh_rank(rank, world, port, run_dir, device, n_rows):
         torch.save(out, run_dir / "mesh.pt")
     dist.barrier(grp)
     mesh.close_group()
+
+
+def _train_rank(rank, world, port, run_dir, device):
+    """One rank of phase 10d (spawned): joins the gloo group, splits it into
+    ``DP_PODS`` pods (``launch.mesh.dp_groups``), draws phase 10c's molecule
+    batch and MACE's parameters from their seeds, and trains on its rows
+    ``DP_STEPS`` SGD steps with the pod hop compressed, then as many
+    uncompressed, each run timed between barriers.  Rank 0 writes what the
+    parent checks to ``run_dir/train_dp.pt``, with the same steps in one
+    process on the whole batch.  ``device`` is the card ("cpu" in a CPU
+    rehearsal)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    from repro_torch.launch import mesh
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    grp = mesh.init_group(rank, world, "gloo", port, timeout_s=600)
+    groups = mesh.dp_groups(DP_PODS)
+    params0, batch, loss = molecule_problem(torch, dev)
+    ocfg = opt_lib.OptConfig(name="sgd", lr=DP_LR)
+    out = {}
+    for compress in (True, False):
+        p, opt = params0, opt_lib.init_opt_state(params0, ocfg)
+        err = train_loop.init_pod_error_state(p)
+        step = train_loop.make_sharded_train_step(loss, ocfg, groups, compress_pod=compress)
+        local = groups.local_rows(batch)
+        p, opt, err, m = step(p, opt, err, local)  # warm-up, counted among the steps
+        sync()
+        dist.barrier(grp)
+        t0 = time.perf_counter()
+        for _ in range(DP_STEPS - 1):
+            p, opt, err, m = step(p, opt, err, local)
+        sync()
+        dist.barrier(grp)
+        tag = "comp" if compress else "full"
+        out[tag + "_ms"] = (time.perf_counter() - t0) * 1e3 / (DP_STEPS - 1)
+        out[tag + "_loss"] = float(m["loss"])
+        mine = {k: v.cpu() for k, v in p.items()}
+        everyone = [None] * world
+        dist.all_gather_object(everyone, mine, group=grp)
+        out[tag + "_replicated"] = all(torch.equal(o[k], mine[k]) for o in everyone for k in mine)
+        out[tag + "_params"] = mine
+    if rank == 0:
+        p, opt = params0, opt_lib.init_opt_state(params0, ocfg)
+        step = train_loop.make_train_step(loss, ocfg)
+        for _ in range(DP_STEPS):
+            p, opt, m = step(p, opt, batch)
+        out["single_params"] = {k: v.cpu() for k, v in p.items()}
+        out["single_loss"] = float(m["loss"])
+        torch.save(out, Path(run_dir) / "train_dp.pt")
+    dist.barrier(grp)
+    mesh.close_group()
+
+
+def molecule_problem(torch, dev):
+    """(params, batch, loss_fn) of MACE at full_config("molecule") on
+    ``MOLECULES`` molecules of 30 atoms with ``MOL_K``-NN edges and random
+    target energies, drawn from ``MACE_*_SEED`` on ``dev``."""
+    from repro_torch.configs import mace_cfg
+    from repro_torch.data import graphs
+    from repro_torch.models import mace
+
+    cfg = mace_cfg.full_config("molecule")
+    g = torch.Generator(device=dev).manual_seed(MACE_DATA_SEED)
+    n_atoms = mace_cfg.SHAPES["molecule"]["n_nodes"]
+    pos, spec = graphs.molecules(g, MOLECULES, n_atoms, n_species=cfg.n_species)
+    edges = [graphs.knn_edges_from_positions(x, MOL_K) for x in pos]
+    batch = dict(positions=pos, species=spec, senders=torch.stack([e[0] for e in edges]),
+                 receivers=torch.stack([e[1] for e in edges]),
+                 energy=torch.randn((MOLECULES,), generator=g, device=dev))
+    params = mace.init_params(torch.Generator(device=dev).manual_seed(MACE_PARAM_SEED), cfg)
+
+    def loss(p, b):
+        return mace.energy_loss(p, b, cfg)
+
+    return params, batch, loss
 
 
 class Smoke:
@@ -913,6 +1067,117 @@ class Smoke:
         print(f"{name} B={B} C={C} e={e} H={vi.shape[1]} P={P} d={d} {metric} "
               f"(fresh {fresh}, inserted {inserted}): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"bound {b:.6f} ms ({how})", flush=True)
+
+    def atom_build(self, pos, generator_seed):
+        """The atom graph's LGD build (k=8, l2, W=1024) of ``pos`` on the
+        card, entry points from a generator seeded ``generator_seed``:
+        (graph, stats, seconds)."""
+        torch = self.torch
+        from repro_torch.core import construct
+
+        cfg = construct.BuildConfig(k=ATOM_K, metric="l2", wave=ATOM_WAVE, lgd=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g, st = construct.build(pos, cfg, generator=self.gen(generator_seed), device=self.dev)
+        torch.cuda.synchronize()
+        return g, st, time.perf_counter() - t0
+
+    def exact_atom_graph(self, pos):
+        """The exact k-NN ids of every atom (self excluded), through the
+        pairwise kernel."""
+        torch = self.torch
+        from repro_torch.core import brute
+
+        n = pos.shape[0]
+        self_ids = torch.arange(n, dtype=torch.int32, device=self.dev)
+        return brute.brute_force_knn(pos, pos, ATOM_K, "l2", exclude_ids=self_ids, device=self.dev)
+
+    def phase_atom_kernels(self):
+        """2e: the three kernels at d=3.  The atom build over ``ATOM_INT_N``
+        integer positions (where distances tie often) and its exact graph,
+        through the kernels and through the plain versions from the same
+        draws: every graph array, the counters and the exact ids and
+        distances bit for bit.  Then each kernel against its plain version,
+        bit for bit, on arguments captured from that build (the seed gather,
+        an expansion, the intra-wave tile and the exact graph's tile), and
+        timed at those shapes but the last, which phase 10b times at its
+        own 10^5 rows."""
+        torch = self.torch
+        from repro_torch import convert
+        from repro_torch.kernels import ref
+
+        n = ATOM_INT_N
+        pos = torch.randint(0, ATOM_INT_HIGH, (n, 3), generator=self.gen(ATOM_INT_SEED),
+                            device=self.dev).float()
+        shapes = {"seed_gather": ("gather_distance", ATOM_WAVE),
+                  "expand": ("expand_step", ATOM_WAVE),
+                  "tile": ("pairwise_distance", ATOM_WAVE),
+                  "brute_tile": ("pairwise_distance", n)}
+        captured = {}
+        self.ops.reset_launch_counts()
+        with self.capture(shapes, captured):
+            g_k, st_k, t_k = self.atom_build(pos, ATOM_BUILD_SEED)
+            ids_k, d_k = self.exact_atom_graph(pos)
+        counts = self.ops.launch_counts()
+        for name in FP32_KERNELS:
+            check(counts[name] > 0, f"phase 2e: the d=3 atom build launched no {name}")
+        with self.plain_versions():
+            g_p, st_p, t_p = self.atom_build(pos, ATOM_BUILD_SEED)
+            ids_p, d_p = self.exact_atom_graph(pos)
+        check(self.ops.launch_counts() == counts,
+              "phase 2e: the plain atom build launched a kernel")
+        a, b = convert.graph_to_numpy(g_k), convert.graph_to_numpy(g_p)
+        for name in a:
+            check((a[name] == b[name]).all(), f"phase 2e: d=3 atom graph field {name} differs, "
+                                              "kernels vs plain")
+        for name in ("n_comps", "n_inserted_edges"):
+            check(int(getattr(st_k, name)) == int(getattr(st_p, name)),
+                  f"phase 2e: d=3 atom build {name} differs, kernels vs plain")
+        check(torch.equal(ids_k, ids_p) and torch.equal(d_k, d_p),
+              "phase 2e: d=3 exact graph differs, kernels vs plain")
+        print(f"phase 2e: {n} atoms at integer positions in [0, {ATOM_INT_HIGH})^3, k={ATOM_K}, "
+              f"W={ATOM_WAVE}: graph arrays, n_comps={int(st_k.n_comps)}, edges and the exact "
+              f"graph identical, kernels vs plain (kernels {t_k:.3f} s, plain {t_p:.3f} s)",
+              flush=True)
+        for label in shapes:
+            check(label in captured, f"phase 2e: no call of {label}'s shape was seen")
+            a = captured[label]
+            if label == "seed_gather":
+                q, x, idx, metric = a["q"], a["x"], a["idx"], a["metric"]
+                self.compare("gather_distance",
+                             self.ops.gather_distance(q, x, idx, metric, sq_norms=a["sq_norms"]),
+                             ref.gather_distance(q, x, idx, metric, sq_norms=a["sq_norms"]),
+                             exact=True, what=f"phase 2e d=3 B={q.shape[0]} C={idx.shape[1]}")
+                g = self.gen(85)
+                B, C = idx.shape
+                sets = [(torch.randint(0, ATOM_INT_HIGH, (B, 3), generator=g,
+                                       device=self.dev).float(),
+                         torch.randint(0, n, (B, C), generator=g, device=self.dev).int())
+                        for _ in range(self.bench.COLD_SETS + 2)]
+                self.time_gather(x, sets, "fp32", prefix="atom_")
+            elif label == "expand":
+                args = [a[k] for k in ("q", "x", "cands", "beam_ids", "beam_dist", "beam_exp",
+                                       "vis_ids", "vis_dist")]
+                kw = dict(metric=a["metric"], sq_norms=a["sq_norms"])
+                got = self.ops.expand_step(*args[:6], args[6].clone(), args[7].clone(),
+                                           hash_probes=a["hash_probes"], **kw)
+                want = self.plain_expand(*args[:6], args[6].clone(), args[7].clone(),
+                                         probes=a["hash_probes"], **kw)
+                B, C = args[2].shape
+                self.compare_expand("fused_expand", got, want, f"phase 2e d=3 B={B} C={C}",
+                                    exact=True, beam_ids=True)
+                self.time_expand(args[1], args[0], a["sq_norms"], tuple(args[2:]),
+                                 a["hash_probes"], None, "fp32", prefix="atom_")
+            else:
+                q, x, metric, xn = a["q"], a["x"], a["metric"], a["x_sq_norms"]
+                self.compare("pairwise_distance",
+                             self.ops.pairwise_distance(q, x, metric, x_sq_norms=xn),
+                             ref.pairwise_distance(q, x, metric, x_sq_norms=xn), exact=True,
+                             what=f"phase 2e d=3 m={q.shape[0]} n={x.shape[0]}")
+                if label == "tile":
+                    self.time_pairwise(q, x, xn, metric=metric, prefix="atom_")
+        print("phase 2e: gather, expansion and pairwise at the atom build's shapes (d=3): "
+              "kernels equal plain bit for bit", flush=True)
 
     # ---------------------------------------------------------------- phase 3
     @contextlib.contextmanager
@@ -2385,6 +2650,451 @@ class Smoke:
         check(rec["overlap_mean"] >= EXAMPLE_OVERLAP,
               f"the example's mean overlap@20 {rec['overlap_mean']:.4f} < {EXAMPLE_OVERLAP}")
 
+    # --------------------------------------------------------------- phase 10
+    def phase_train(self):
+        """10: training on the card.  (a) each recommender at the published
+        widths, (b) the paper's graph over 10^5 atoms under MACE, (c) MACE
+        training at full_graph_sm and molecule, (d) the compressed
+        data-parallel step on 4 gloo ranks."""
+        torch = self.torch
+        for arch in RECSYS_ARCHS:
+            self.recsys_training(arch)
+            torch.cuda.empty_cache()
+        self.atom_graph()
+        torch.cuda.empty_cache()
+        self.mace_training()
+        torch.cuda.empty_cache()
+        self.compressed_dp()
+
+    def timed_steps(self, what, step, state, batches):
+        """``state = step(*state, batch)`` over ``batches``, each step timed
+        (host clock to a synchronize; the batch made before the clock
+        starts), with the peak memory over them: (state, ms per step,
+        metrics per step)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, metrics = [], []
+        for make in batches:
+            batch = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *state, m = step(*state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated()
+        check(all(all(map(math.isfinite, m.values())) for m in metrics),
+              f"{what}: non-finite metrics {metrics}")
+        return state, ms, metrics, peak
+
+    def split_step(self, loss, state, batch, ocfg, accum=1):
+        """One more step in its two layers, each timed to a synchronize: the
+        gradients (forward and backward of every microbatch) and the
+        optimizer's update (clip and AdamW): (gradients ms, update ms)."""
+        torch = self.torch
+        from repro_torch.train import optimizer as opt_lib
+        from repro_torch.train import train_loop
+
+        params, opt = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = train_loop.step_grads(loss, params, batch, accum)[2]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt_lib.apply_updates(params, grads, opt, ocfg)
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    def recsys_training(self, arch):
+        """10a: one arch at ``full_config()``, parameters drawn on the card,
+        AdamW over ``train_batch`` batches from the skip-ahead loader: the
+        first step on the first rows against the CPU in float64, then one
+        warm-up and ``TRAIN_STEPS`` timed steps."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.data import loader, recsys_data
+        from repro_torch.models import common, recsys
+        from repro_torch.train import optimizer as opt_lib
+        from repro_torch.train import train_loop
+
+        mod = configs.get(arch)
+        cfg = mod.full_config()
+        B = mod.SHAPES["train_batch"]["batch"]
+        accum = XDEEPFM_ACCUM if arch == "xdeepfm" else 1
+        params = recsys.init_params(self.gen(RECSYS_PARAM_SEED), cfg)
+        ctr = arch in ("deepfm", "xdeepfm")
+
+        def rows(g):
+            if ctr:
+                return recsys_data.ctr_batch(g, B, cfg.n_sparse, cfg.vocab_per_field)
+            return recsys_data.behavior_batch(g, B, cfg.seq_len, cfg.vocab_per_field)
+
+        def loss(p, b):
+            return recsys.loss_fn(p, b, cfg)
+
+        data = loader.LoaderSpec(rows, seed=TRAIN_SEED, device=self.dev)
+        self.check_train_grads(arch, cfg, params, data.batch(0), loss)
+        ocfg = opt_lib.OptConfig(name="adamw", lr=TRAIN_LR)
+        step = train_loop.make_train_step(loss, ocfg, accum_steps=accum)
+        state = (params, opt_lib.init_opt_state(params, ocfg))
+        del params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *state, m0 = step(*state, data.batch(0))
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t0) * 1e3
+        state, ms, metrics, peak = self.timed_steps(
+            f"phase 10a {arch}", step, state,
+            [lambda s=s: data.batch(s) for s in range(1, TRAIN_STEPS + 1)])
+        n_par = common.count_params(state[0])
+        t_g, t_u = self.split_step(loss, state, data.batch(TRAIN_STEPS + 1), ocfg, accum)
+        print(f"phase 10a: {arch} full_config() training, {n_par} parameters, AdamW (dense: every "
+              f"table row decays), train_batch {B} rows in {accum} microbatch(es) of {B // accum}: "
+              f"{sum(ms) / len(ms):.3f} ms per step (steps {', '.join(f'{t:.3f}' for t in ms)}; "
+              f"warm-up {warm:.3f}), peak {peak / 2**30:.3f} GiB; loss "
+              f"{float(m0['loss']):.4f} -> {metrics[-1]['loss']:.4f}, grad_norm "
+              f"{metrics[-1]['grad_norm']:.4f}; one more step split: gradients {t_g:.3f} ms, "
+              f"clip and AdamW {t_u:.3f} ms", flush=True)
+        if accum > 1:
+            check(peak < 60 * 2**30, f"phase 10a: {arch} at accum_steps={accum} peaked at "
+                                     f"{peak / 2**30:.3f} GiB")
+        del state
+
+    @contextlib.contextmanager
+    def relu_masks(self, masks, replay):
+        """Within the block every ReLU of the recommenders (``torch.relu``
+        and ``common.ACTIVATIONS["relu"]``) either appends its mask
+        (input > 0) to ``masks`` or, with ``replay``, multiplies its input
+        by the next mask of ``masks``: a float64 pass then takes the branch
+        an fp32 pass took at every unit, also where the input lies within
+        fp32 rounding of 0, so the two differ only by rounding."""
+        torch = self.torch
+        from repro_torch.models import common
+
+        saved = torch.relu, common.ACTIVATIONS["relu"]
+        seen = iter(masks) if replay else None
+
+        def relu(x):
+            if not replay:
+                masks.append((x > 0).cpu())
+                return saved[0](x)
+            m = next(seen, None)
+            check(m is not None and tuple(m.shape) == tuple(x.shape),
+                  "phase 10a: the float64 pass ran another ReLU than the fp32 pass")
+            return x * m.to(x.device, x.dtype)
+
+        torch.relu, common.ACTIVATIONS["relu"] = relu, relu
+        try:
+            yield
+        finally:
+            torch.relu, common.ACTIVATIONS["relu"] = saved
+        check(seen is None or next(seen, None) is None,
+              "phase 10a: the float64 pass ran fewer ReLUs than the fp32 pass")
+
+    def check_train_grads(self, arch, cfg, params, batch, loss):
+        """The first step's loss and gradients on the batch's first
+        ``CHECK_ROWS`` rows, card against the CPU in float64 (tables copied
+        only on the rows those rows read): the loss within ``GRAD_RTOL``,
+        every dense leaf and the read rows of each table within
+        ``GRAD_RTOL`` of the leaf's largest element.  A ReLU whose input
+        lies within fp32 rounding of 0 may take the other side in fp32 than
+        in float64, which moves a whole term of a gradient (BST's 1,024-wide
+        MLP on some batches: up to 7% of a leaf's largest element), so the
+        float64 pass replays the card's ReLU masks (``relu_masks``); the
+        units whose float64 input lies on the other side are counted."""
+        torch = self.torch
+        from repro_torch.launch.train import flatten
+        from repro_torch.models import recsys
+        from repro_torch.train import train_loop
+
+        head = {k: v[:CHECK_ROWS] for k, v in batch.items()}
+        ids = [recsys.field_ids(v, cfg).reshape(-1) if k == "sparse" else v.reshape(-1).long()
+               for k, v in head.items() if not v.is_floating_point()]
+        ids = torch.cat(ids)
+        rows = torch.unique(ids[ids >= 0])
+
+        def grads(p, b):
+            (l, _), g = train_loop.value_and_grad(loss, p, b)
+            g = {k: (v[rows.to(v.device)] if k.rsplit("/", 1)[-1] in ("table", "lin_table")
+                     else v).to("cpu", torch.float64) for k, v in flatten(g).items()}
+            return float(l), g
+
+        masks, masks64 = [], []
+        with self.relu_masks(masks, replay=False):
+            l32, g32 = grads(params, head)
+        p64 = self.cpu64(params, rows)
+        b64 = {k: v.to("cpu", torch.float64) if v.is_floating_point() else v.cpu()
+               for k, v in head.items()}
+        with self.relu_masks(masks, replay=True):
+            l64, g64 = grads(p64, b64)
+        with self.relu_masks(masks64, replay=False), torch.no_grad():
+            loss(p64, b64)
+        flipped = sum(int((a != b).sum()) for a, b in zip(masks, masks64))
+        units = sum(m.numel() for m in masks)
+        worst = {}
+        for name, want in g64.items():
+            scale = float(want.abs().max()) or 1.0
+            worst[name] = float((g32[name] - want).abs().max()) / scale
+        err_l = abs(l32 - l64) / abs(l64)
+        name, w = max(worst.items(), key=lambda kv: kv[1])
+        print(f"phase 10a: {arch} first step on the first {CHECK_ROWS} rows against the CPU in "
+              f"float64 on the card's {len(masks)} ReLU masks ({units} units, {flipped} of them "
+              f"on the other side of 0 in float64): loss {l64:.6f} (rel err {err_l:.3e}), "
+              f"{len(worst)} gradient leaves, worst {name} at {w:.3e} of its largest element "
+              f"(tolerance {GRAD_RTOL})", flush=True)
+        check(err_l <= GRAD_RTOL and w <= GRAD_RTOL,
+              f"phase 10a: {arch} gradients differ from the CPU's: {name} {w:.3e}, "
+              f"loss {err_l:.3e}")
+
+    def atom_graph(self):
+        """10b: the paper's graph over ``ATOM_N`` atoms uniform in a box of
+        side ``ATOM_SIDE`` (the example's density): the LGD build (k=8, l2,
+        W=1024) through the kernels and its exact graph through the pairwise
+        kernel; the exact graph and the build again through the plain
+        versions, both builds scored against the plain exact graph (recall
+        within 0.01; phase 2e held the ids bit for bit on integer
+        positions); the pairwise kernel against plain on one full tile of
+        the exact graph, captured, within ``ATOM_PAIR_RTOL``, and timed;
+        then MACE at full_config("molecule") over the graph's edges, energy
+        and forces timed, and held against the CPU in float64 on a slab of
+        the box."""
+        torch = self.torch
+        from repro_torch.configs import mace_cfg
+        from repro_torch.core import brute, construct
+        from repro_torch.models import mace
+
+        n = ATOM_N
+        pos = torch.rand((n, 3), generator=self.gen(ATOM_SEED), device=self.dev) * ATOM_SIDE
+        captured = {}
+        self.ops.reset_launch_counts()
+        g_k, st_k, t_k = self.atom_build(pos, ATOM_BUILD_SEED)
+        at_build = self.ops.launch_counts()
+        t0 = time.perf_counter()
+        with self.capture({"brute_tile": ("pairwise_distance", n)}, captured):
+            exact_k, dist_k = self.exact_atom_graph(pos)
+        torch.cuda.synchronize()
+        t_exact = time.perf_counter() - t0
+        self.path_counts("atom", f"phase 10b's atom path (the build of {n} atoms, then its exact "
+                                 "graph)")
+        rate = construct.scanning_rate(st_k, n)
+        with self.plain_versions():
+            exact, dist_p = self.exact_atom_graph(pos)
+            g_p, st_p, t_p = self.atom_build(pos, ATOM_BUILD_SEED)
+        # the exact graphs: the same k distances per atom within the tile's
+        # tolerance (ids may swap only where two distances lie that close)
+        norms = (pos * pos).sum(1)
+        slack = ATOM_PAIR_RTOL * (norms + norms.max())
+        err_d = float(((dist_k - dist_p).abs() / slack[:, None]).max())
+        agree = brute.recall_at_k(exact_k, exact, ATOM_K)
+        recall_k = brute.recall_at_k(g_k.nbr_ids[:n], exact, ATOM_K)
+        recall_p = brute.recall_at_k(g_p.nbr_ids[:n], exact, ATOM_K)
+        print(f"phase 10b: LGD graph over {n} atoms (d=3, box side {ATOM_SIDE:.3f}, k={ATOM_K}, "
+              f"W={ATOM_WAVE}): {t_k:.3f} s ({n / t_k:.1f} atoms/s), scanning rate {rate:.6f}, "
+              f"edge recall@{ATOM_K} {recall_k:.4f} against the plain versions' exact graph; "
+              f"fp32 launches in the build: "
+              + ", ".join(f"{k} {at_build[k]}" for k in FP32_KERNELS), flush=True)
+        print(f"phase 10b: the exact graph through the pairwise kernel in {t_exact:.3f} s: ids "
+              f"{agree:.6f} of the plain versions', distances within {err_d:.3e} of the "
+              f"tolerance ({ATOM_PAIR_RTOL} of |q|^2 + max |x|^2)", flush=True)
+        print(f"phase 10b: the same build through the plain versions on the card: {t_p:.3f} s, "
+              f"scanning rate {construct.scanning_rate(st_p, n):.6f}, recall@{ATOM_K} "
+              f"{recall_p:.4f}", flush=True)
+        check(err_d <= 1.0, f"phase 10b: the exact graph's distances, kernel vs plain, "
+                            f"{err_d:.3e} of the tolerance")
+        check(abs(recall_k - recall_p) <= 0.01,
+              f"phase 10b: kernels' recall {recall_k:.4f} vs plain {recall_p:.4f}")
+        del g_p, exact, exact_k, dist_k, dist_p
+        self.atom_brute_tile(captured)
+        # --- MACE over the graph's edges ---------------------------------------
+        cfg = mace_cfg.full_config("molecule")
+        params = mace.init_params(self.gen(MACE_PARAM_SEED), cfg)
+        species = torch.randint(0, cfg.n_species, (n,), generator=self.gen(MACE_DATA_SEED),
+                                device=self.dev)
+        nbr = g_k.nbr_ids[:n]
+        valid = (nbr >= 0).reshape(-1)
+        senders = nbr.reshape(-1)[valid]
+        receivers = torch.arange(n, device=self.dev).repeat_interleave(ATOM_K)[valid]
+        mace.energy(params, pos[:64], species[:64], senders[:0], receivers[:0], cfg)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        e = mace.energy(params, pos, species, senders, receivers, cfg)
+        torch.cuda.synchronize()
+        t_e = (time.perf_counter() - t0) * 1e3
+        peak_e = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        f = mace.forces(params, pos, species, senders, receivers, cfg)
+        torch.cuda.synchronize()
+        t_f = (time.perf_counter() - t0) * 1e3
+        peak_f = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(e)) and bool(torch.isfinite(f).all()),
+              "phase 10b: non-finite MACE energy or forces")
+        print(f"phase 10b: MACE full_config('molecule') (d_hidden {cfg.d_hidden}, correlation "
+              f"{cfg.correlation}) over the graph's {senders.numel()} edges: energy "
+              f"{float(e):.4f} in {t_e:.3f} ms (peak {peak_e / 2**30:.3f} GiB), forces (energy "
+              f"and its gradient) in {t_f:.3f} ms (peak {peak_f / 2**30:.3f} GiB), max |F| "
+              f"{float(f.abs().max()):.4f}", flush=True)
+        # --- the CPU's float64 on a slab of the box ------------------------------
+        keep = pos[:, 0] < ATOM_CUT * ATOM_SIDE
+        new_id = torch.full((n,), -1, dtype=torch.int64, device=self.dev)
+        new_id[keep] = torch.arange(int(keep.sum()), device=self.dev)
+        s2, r2 = new_id[senders], new_id[receivers]
+        inside = (s2 >= 0) & (r2 >= 0)
+        cut = (pos[keep], species[keep], s2[inside], r2[inside])
+        e32 = mace.energy(params, *cut, cfg)
+        f32 = mace.forces(params, *cut, cfg)
+        p64 = {k: v.to("cpu", torch.float64) for k, v in params.items()}
+        c64 = [t.to("cpu", torch.float64) if t.is_floating_point() else t.cpu() for t in cut]
+        t0 = time.perf_counter()
+        e64 = mace.energy(p64, *c64, cfg)
+        f64 = mace.forces(p64, *c64, cfg)
+        t_cpu = time.perf_counter() - t0
+        err_e = abs(float(e32) - float(e64)) / abs(float(e64))
+        err_f = float((f32.cpu().double() - f64).abs().max()) / float(f64.abs().max())
+        print(f"phase 10b: the slab x < {ATOM_CUT * ATOM_SIDE:.3f} ({cut[0].shape[0]} atoms, "
+              f"{cut[2].numel()} edges) against the CPU in float64 ({t_cpu:.3f} s): energy rel err "
+              f"{err_e:.3e}, forces max err {err_f:.3e} of the largest |F| (tolerance "
+              f"{MACE_RTOL})", flush=True)
+        check(err_e <= MACE_RTOL and err_f <= MACE_RTOL,
+              f"phase 10b: MACE on the card differs from the CPU's float64 (energy {err_e:.3e}, "
+              f"forces {err_f:.3e})")
+        self.molecule_example()
+
+    def atom_brute_tile(self, captured):
+        """10b: the pairwise kernel against its plain version on a full tile
+        of the exact atom graph (10^5 real-valued positions against 8,192),
+        each distance within ``ATOM_PAIR_RTOL`` of |q|^2 + |x|^2, then timed
+        at that shape (``atom_brute_`` keys)."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+
+        check("brute_tile" in captured, "phase 10b: no tile of the exact graph was captured")
+        a = captured.pop("brute_tile")
+        q, x, metric, xn = a["q"], a["x"], a["metric"], a["x_sq_norms"]
+        got = self.ops.pairwise_distance(q, x, metric, x_sq_norms=xn)
+        want = ref.pairwise_distance(q, x, metric, x_sq_norms=xn)
+        what = f"phase 10b d=3 m={q.shape[0]} n={x.shape[0]}"
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and bool(torch.isfinite(want).all()),
+              f"pairwise_distance {what}: shape {tuple(got.shape)} or a non-finite value")
+        got -= want
+        got.abs_()
+        err = float(got.max())
+        got /= (q * q).sum(1, keepdim=True) + (x * x).sum(1)[None, :]
+        rel = float(got.max())
+        del got, want
+        print(f"pairwise_distance {what}: max abs err {err:.6e}, {rel:.3e} of |q|^2 + |x|^2 "
+              f"(tolerance {ATOM_PAIR_RTOL})", flush=True)
+        check(rel <= ATOM_PAIR_RTOL, f"pairwise_distance {what}: {rel:.3e} of |q|^2 + |x|^2 "
+                                     f"beyond {ATOM_PAIR_RTOL}")
+        self.rec["pairwise_distance"]["max_abs_err"] = max(
+            self.rec["pairwise_distance"]["max_abs_err"], err)
+        self.time_pairwise(q, x, xn, metric=metric, prefix="atom_brute_")
+
+    def molecule_example(self):
+        """10b: ``examples/molecule_graphs_torch.py`` at its own size (3,000
+        atoms) on the card."""
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "molecule_graphs_torch", ROOT / "examples" / "molecule_graphs_torch.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        rec = example.main(["--device", str(self.dev)])
+        print(f"phase 10b: examples/molecule_graphs_torch.py on {rec['device']}: {rec['n_atoms']} "
+              f"atoms, build {rec['build_s']:.3f} s, scanning rate {rec['scanning_rate']:.4f}, "
+              f"edge recall {rec['recall']:.4f}, MACE energy and forces {rec['mace_s']:.3f} s",
+              flush=True)
+        check(bool(self.torch.isfinite(rec["forces"]).all()),
+              "phase 10b: the example's forces are not finite")
+
+    def mace_training(self):
+        """10c: MACE training at full_config("full_graph_sm") on a cora-size
+        ``random_graph`` and at full_config("molecule") on ``MOLECULES``
+        molecules with k-NN edges: AdamW, one warm-up and ``MACE_STEPS``
+        timed steps each."""
+        torch = self.torch
+        from repro_torch.configs import mace_cfg
+        from repro_torch.data import graphs
+        from repro_torch.models import mace
+        from repro_torch.train import optimizer as opt_lib
+        from repro_torch.train import train_loop
+
+        ocfg = opt_lib.OptConfig(name="adamw", lr=TRAIN_LR)
+        s = mace_cfg.SHAPES["full_graph_sm"]
+        cfg = mace_cfg.full_config("full_graph_sm")
+        g = graphs.random_graph(self.gen(MACE_DATA_SEED), s["n_nodes"], s["n_edges"], s["d_feat"],
+                                n_classes=s["n_classes"])
+        n = s["n_nodes"]
+        cora = dict(positions=torch.zeros((n, 3), device=self.dev),
+                    species=torch.zeros((n,), dtype=torch.int32, device=self.dev),
+                    senders=g.senders, receivers=g.receivers, node_feat=g.features,
+                    labels=g.labels)
+        params = mace.init_params(self.gen(MACE_PARAM_SEED), cfg)
+        mol_params, mol_batch, mol_loss = molecule_problem(torch, self.dev)
+        runs = [("full_graph_sm", params, cora, lambda p, b: mace.node_class_loss(p, b, cfg),
+                 f"{n} nodes, {s['n_edges']} edges, d_feat {s['d_feat']}, "
+                 f"{s['n_classes']} classes"),
+                ("molecule", mol_params, mol_batch, mol_loss,
+                 f"{MOLECULES} molecules x 30 atoms, {MOL_K}-NN edges "
+                 f"({mol_batch['senders'].shape[1]} a molecule)")]
+        for shape, p, batch, loss, what in runs:
+            step = train_loop.make_train_step(loss, ocfg)
+            state = (p, opt_lib.init_opt_state(p, ocfg))
+            *state, m0 = step(*state, batch)  # warm-up
+            state, ms, metrics, peak = self.timed_steps(
+                f"phase 10c {shape}", step, state, [lambda: batch] * MACE_STEPS)
+            t_g, t_u = self.split_step(loss, state, batch, ocfg)
+            print(f"phase 10c: MACE {shape} ({what}), AdamW: {sum(ms) / len(ms):.3f} ms per step "
+                  f"(steps {', '.join(f'{t:.3f}' for t in ms)}), peak {peak / 2**30:.3f} GiB; "
+                  f"loss {float(m0['loss']):.4f} -> {metrics[-1]['loss']:.4f}; one more step "
+                  f"split: gradients {t_g:.3f} ms, clip and AdamW {t_u:.3f} ms", flush=True)
+
+    def compressed_dp(self):
+        """10d: the two-level data-parallel step on ``DP_RANKS`` gloo ranks
+        on the one card (``_train_rank``), MACE molecule: every rank ends
+        with rank 0's parameters, uncompressed equals one process on the
+        whole batch within ``DP_RTOL``, compressed tracks uncompressed within
+        ``DP_TRACK``."""
+        torch = self.torch
+        import torch.multiprocessing as mp
+
+        from repro_torch.launch.mesh import free_port
+
+        run_dir = ROOT / "build" / "train_dp"
+        run_dir.mkdir(parents=True, exist_ok=True)
+        for old in run_dir.glob("*.pt"):
+            old.unlink()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.spawn(_train_rank, args=(DP_RANKS, free_port(), str(run_dir), self.dev.type),
+                 nprocs=DP_RANKS, join=True)
+        t_world = time.perf_counter() - t0
+        res = torch.load(run_dir / "train_dp.pt")
+        for tag in ("comp", "full"):
+            check(res[tag + "_replicated"], f"phase 10d: ranks' parameters differ ({tag})")
+
+        def worst(a, b):
+            return max(float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30)
+                       for k in b)
+
+        rel = worst(res["full_params"], res["single_params"])
+        dw = max(float((res["comp_params"][k] - res["full_params"][k]).abs().max())
+                 for k in res["full_params"])
+        print(f"phase 10d: {DP_RANKS} gloo ranks on the one card, {DP_PODS} pods x "
+              f"{DP_RANKS // DP_PODS} data ranks, MACE molecule, {MOLECULES // DP_RANKS} molecules "
+              f"a rank, SGD lr {DP_LR}, {DP_STEPS} steps: compressed pod hop "
+              f"{res['comp_ms']:.3f} ms per step (loss {res['comp_loss']:.4f}), uncompressed "
+              f"{res['full_ms']:.3f} ms per step (loss {res['full_loss']:.4f}); one process on the "
+              f"whole batch: loss {res['single_loss']:.4f}, worst leaf {rel:.3e} of its largest "
+              f"element from the uncompressed ranks (tolerance {DP_RTOL}); compressed vs "
+              f"uncompressed max |dw| {dw:.3e} (bound {DP_TRACK}); every rank's parameters equal "
+              f"rank 0's; the world {t_world:.3f} s", flush=True)
+        check(rel <= DP_RTOL, f"phase 10d: uncompressed ranks differ from one process by {rel:.3e}")
+        check(dw < DP_TRACK, f"phase 10d: compressed drifts {dw:.3e} from uncompressed")
+
     def kernel_records(self):
         out = []
         for name, (source, replaces) in KERNELS.items():
@@ -2400,7 +3110,8 @@ class Smoke:
             # shape, and the large-C shape
             rec.update({k: v for k, v in r.items()
                         if k in ("warm_ms", "floor_ms", "index_select_ms")
-                        or k.startswith(("large_c_", "serve_", "merge_", "router_", "mind_"))})
+                        or k.startswith(("large_c_", "serve_", "merge_", "router_", "mind_",
+                                         "atom_"))})
             if name in self.serve_launches:
                 rec["serve_launches"] = self.serve_launches[name]
             for path, counts in self.path_launches.items():

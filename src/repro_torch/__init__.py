@@ -9,3 +9,13 @@ a CUDA device takes the kernel.  Entry points (``core.construct.build``,
 ``core.search.search``, ``core.brute.brute_force_knn``, the launcher) run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
+
+
+def __getattr__(name):
+    # ``repro_torch.build`` / ``repro_torch.BuildConfig``, as the reference
+    # exports them, without importing the build when the package is imported
+    if name in ("build", "BuildConfig"):
+        from repro_torch.core import construct
+
+        return getattr(construct, name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

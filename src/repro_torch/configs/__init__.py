@@ -3,9 +3,9 @@
 
 Each module exports ``ARCH``, ``FAMILY``, ``SHAPES``, ``SKIP``,
 ``full_config()`` and ``smoke_config()`` with the reference's values.  The
-registry maps the archs ported so far, the four recommender models and the
-two k-NN builders; the reference's other archs raise, naming the ROADMAP
-item that ports them.
+registry maps the archs ported so far, the four recommender models, MACE
+and the two k-NN builders; the reference's other archs (the LMs) raise,
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import importlib
 from typing import List
 
 _ARCH_MODULES = {
+    "mace": "repro_torch.configs.mace_cfg",
     "deepfm": "repro_torch.configs.deepfm",
     "bst": "repro_torch.configs.bst",
     "xdeepfm": "repro_torch.configs.xdeepfm",
@@ -26,7 +27,7 @@ _ARCH_MODULES = {
 # the reference's archs not ported yet, and the ROADMAP item that ports each
 _NOT_PORTED = {
     "mixtral-8x7b": "13c", "arctic-480b": "13c", "stablelm-1.6b": "13c",
-    "qwen2.5-3b": "13c", "gemma3-1b": "13c", "mace": "13d",
+    "qwen2.5-3b": "13c", "gemma3-1b": "13c",
 }
 
 

@@ -7,7 +7,11 @@
 ``build_config_from_dict`` carries a reference ``BuildConfig.__dict__``;
 ``encoded_from_numpy`` carries a reference ``EncodedData``;
 ``recsys_params_from_numpy`` and ``recsys_params_to_numpy`` carry a
-recommender model's parameter tree.  Nothing here imports the reference.
+recommender model's parameter tree, ``mace_params_from_numpy`` and
+``mace_params_to_numpy`` MACE's, and ``opt_state_from_numpy`` and
+``opt_state_to_numpy`` an optimizer's state (AdamW ``m``/``v``/``step``,
+Adafactor ``vr``/``vc``/``step``, SGD ``step``).  Nothing here imports the
+reference.
 """
 
 from __future__ import annotations
@@ -145,3 +149,48 @@ def recsys_params_to_numpy(params: dict) -> dict:
     if isinstance(params, dict):
         return {k: recsys_params_to_numpy(v) for k, v in params.items()}
     return params.detach().cpu().numpy()
+
+
+def mace_params_from_numpy(tree: dict, cfg, device="cpu") -> dict:
+    """A reference MACE parameter dict of numpy leaves -> the port's, each
+    leaf in ``cfg.param_dtype`` on ``device``.  The keys and shapes must be
+    the ones the port's ``mace.init_params`` makes for ``cfg``; raises
+    naming the first that differs."""
+    from repro_torch.models import mace
+
+    want = {k: tuple(v.shape) for k, v in mace.init_params(torch.Generator(), cfg).items()}
+    if set(tree) != set(want):
+        raise ValueError(f"{cfg.name} params: keys {sorted(tree)} != {sorted(want)}")
+    dt = getattr(torch, cfg.param_dtype)
+    out = {}
+    for k, shape in want.items():
+        a = np.asarray(tree[k])
+        if a.shape != shape:
+            raise ValueError(f"{cfg.name} params[{k!r}]: shape {a.shape} != {shape}")
+        out[k] = torch.from_numpy(a.copy()).to(device=device, dtype=dt)
+    return out
+
+
+_OPT_KEYS = {frozenset({"m", "v", "step"}), frozenset({"vr", "vc", "step"}), frozenset({"step"})}
+
+
+def opt_state_from_numpy(tree: dict, device="cpu") -> dict:
+    """A reference optimizer state (``init_opt_state``'s dict, numpy
+    leaves) -> the port's: float leaves as float32 tensors on ``device``,
+    ``step`` an int32 scalar tensor."""
+    if frozenset(tree) not in _OPT_KEYS:
+        raise ValueError(f"optimizer state keys {sorted(tree)}: not AdamW, Adafactor or SGD")
+
+    def carry(node):
+        if isinstance(node, dict):
+            return {k: carry(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, np.float32)).to(device)
+
+    out = {k: carry(v) for k, v in tree.items() if k != "step"}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=device)
+    return out
+
+
+# MACE's parameters and an optimizer's state (``step`` an int32 scalar) go
+# to the reference's layout as any tree of tensors does
+mace_params_to_numpy = opt_state_to_numpy = recsys_params_to_numpy

@@ -21,6 +21,7 @@ the module is imported.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import socket
 
@@ -64,3 +65,42 @@ def close_group() -> None:
     """Leave the default process group (a no-op outside one)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+@dataclasses.dataclass(frozen=True)
+class DPGroups:
+    """This rank's two groups of the reference's ``(pod, data)`` mesh: the
+    ranks of its pod (``data``) and the ranks at its place in every pod
+    (``pod``).  Rank r is pod ``r // n_data``, place ``r % n_data``, the
+    reference's row-major device order, so its rows of a global batch are
+    the r-th of ``n_pods * n_data`` equal blocks (``local_rows``)."""
+
+    data: object
+    pod: object
+    n_pods: int
+    n_data: int
+    rank: int
+
+    def local_rows(self, batch: dict) -> dict:
+        world = self.n_pods * self.n_data
+        return {k: v[self.rank * (v.shape[0] // world):(self.rank + 1) * (v.shape[0] // world)]
+                for k, v in batch.items()}
+
+
+def dp_groups(n_pods: int) -> DPGroups:
+    """The data and pod groups of ``n_pods`` pods over the world, whose
+    size n_pods must divide.  Every rank must call this,
+    in the same order as its other ``new_group`` calls: each group is made
+    on every rank, the ones it is not in included."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % n_pods:
+        raise ValueError(f"{n_pods} pods do not divide a world of {world}")
+    n_data = world // n_pods
+    data = pod = None
+    for p in range(n_pods):
+        g = dist.new_group([p * n_data + i for i in range(n_data)])
+        data = g if rank // n_data == p else data
+    for i in range(n_data):
+        g = dist.new_group([p * n_data + i for p in range(n_pods)])
+        pod = g if rank % n_data == i else pod
+    return DPGroups(data=data, pod=pod, n_pods=n_pods, n_data=n_data, rank=rank)

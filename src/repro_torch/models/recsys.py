@@ -18,7 +18,10 @@ chunks: at full width the reference's one-shot contraction would hold
 xDeepFM's (B, H, F, D) product (82 GB at serve_bulk) or BST's attention over
 10^6 candidates (14 GB).  A row's score depends on no other row, and every
 product inside keeps at least two rows, so the chunked scores equal the
-whole batch's bit for bit on the CPU.
+whole batch's bit for bit on the CPU.  ``loss_fn`` runs its batch whole:
+under autograd every chunk's graph is kept for the backward pass, so chunks
+save no memory there; training bounds memory with gradient accumulation
+(``train.train_loop.make_train_step(accum_steps=...)``).
 
 MIND's routing logits are a fixed random draw in the reference
 (``PRNGKey(7)``, one per history length); here ``routing_init(S, K)`` makes
@@ -275,7 +278,9 @@ def _ctr_head(params: Params, emb: torch.Tensor, first: torch.Tensor, deep_in: t
     deep = common.mlp_apply(params["mlp"], deep_in, act="relu")[:, 0]
     if cfg.name == "deepfm":
         return first + fm_second_order(emb) + deep
-    feats = cin(emb, params["cin"], cfg.cin_layers)
+    # whole rows here: the scorers chunk the rows they meet, and under
+    # autograd a chunk saves nothing (its graph is kept for the backward pass)
+    feats = cin(emb, params["cin"], cfg.cin_layers, chunk=emb.shape[0])
     return first + common.linear(feats, params["cin_out"])[:, 0] + deep
 
 

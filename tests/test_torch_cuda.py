@@ -651,3 +651,120 @@ def test_recsys_scores_on_the_card_match_the_cpu(card, arch):
         want = fn(params, b)
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------ atom positions: d = 1, 2, 3
+
+# d below one 16-byte vector: every kernel takes its scalar loads, a row's
+# group has fewer lanes than a warp, and one k-slice of the pairwise tile is
+# mostly zero fill
+NARROW_D = [1, 2, 3]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("d", NARROW_D)
+@pytest.mark.parametrize("B,C", [(1, 1), (37, 8), (300, 44), (5, 512)])
+def test_gather_kernel_narrow_rows(card, precision, d, B, C):
+    """Every metric at d < 4, bit for bit on integer rows where the sums
+    are exact, within rtol=1e-5, atol=1e-3 elsewhere; ids < 0 give +inf."""
+    n = 400
+    rng = np.random.RandomState(B + C + d)
+    idx = torch.from_numpy(rng.randint(-1, n, (B, C))).int().to(card)
+    for metric in METRICS:
+        for integer in (True, False):
+            x = _data((n, d), 41, metric, integer, card)
+            q = _data((B, d), 42, metric, integer, card)
+            sq = (x * x).sum(-1)
+            enc = precision_lib.encode_dataset(x, precision)
+            table, scale = (x, None) if precision == "fp32" else (enc.data, enc.scale)
+            got = gather_dist.gather_distance(q, table, idx, metric, sq_norms=sq, row_scale=scale)
+            want = ref.gather_distance(q, x, idx, metric, sq_norms=sq, enc=enc,
+                                       precision=precision)
+            what = f"{metric} {'int' if integer else 'gauss'}"
+            assert torch.equal(torch.isinf(got), idx < 0), what
+            exact = metric in EXACT if precision == "fp32" else _exact(metric, precision)
+            if integer and exact:
+                assert torch.equal(got, want), what
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3, msg=what)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("d", NARROW_D)
+@pytest.mark.parametrize("H,C,e,P", [(16, 24, 8, 4), (2048, 24, 16, 8), (2048, 130, 64, 8)])
+def test_expand_kernel_narrow_rows_bit_exact(card, precision, d, H, C, e, P):
+    """Chained expansions on integer rows at d < 4 (the atom build's C =
+    k + 2k = 24, e=16 at H=2048; probe exhaustion at H=16; three candidate
+    passes at C=130): every field equals the plain version bit for bit."""
+    B, n = 37, 400
+    rng = np.random.RandomState(H + C + e + d)
+    x = _data((n, d), 43, "l2", True, card)
+    q = _data((B, d), 44, "l2", True, card)
+    sq = (x * x).sum(-1)
+    enc = precision_lib.encode_dataset(x, precision)
+    table, scale = (x, None) if precision == "fp32" else (enc.data, enc.scale)
+    state_k = state_p = (
+        torch.full((B, e), -1, dtype=torch.int32, device=card),
+        torch.full((B, e), float("inf"), device=card),
+        torch.ones((B, e), dtype=torch.bool, device=card),
+        torch.full((B, H), -1, dtype=torch.int32, device=card),
+        torch.full((B, H), float("inf"), device=card),
+    )
+    for step in range(4):
+        c = rng.randint(-1, n, (B, C))
+        k = min(C // 3, e)
+        c[:, :k] = np.where(rng.rand(B, k) < 0.7, state_p[0].cpu().numpy()[:, :k], c[:, :k])
+        cands = torch.from_numpy(c).int().to(card)
+        got = expand.fused_expand(q, table, cands, *state_k[:3], *(t.clone() for t in state_k[3:]),
+                                  metric="l2", probes=P, sq_norms=sq, row_scale=scale)
+        want = expand.expand_reference(q, x, cands, *state_p[:3],
+                                       *(t.clone() for t in state_p[3:]), metric="l2", probes=P,
+                                       sq_norms=sq, enc=enc, precision=precision)
+        for name, a, b in zip(FIELDS, got, want):
+            assert torch.equal(a, b), f"step {step} {name}"
+        state_k, state_p = got[:5], want[:5]
+
+
+@pytest.mark.parametrize("metric", METRICS + ["l2-cached"])
+@pytest.mark.parametrize("d", NARROW_D)
+@pytest.mark.parametrize("m,n", [(1, 1), (129, 385), (1024, 1024), (96, 8192)])
+def test_pairwise_kernel_narrow_rows(card, metric, d, m, n):
+    """The tile at d < 4, fp32 and bf16 operands: bit for bit on integer
+    rows (l2/ip/l1), within rtol=1e-5, atol=1e-3 on Gaussian rows."""
+    cached = metric == "l2-cached"
+    metric = metric.removesuffix("-cached")
+    for integer in (True, False):
+        q = _data((m, d), 45, metric, integer, card)
+        x = _data((n, d), 46, metric, integer, card)
+        for dt in (torch.float32, torch.bfloat16):
+            qq, xx = q.to(dt), x.to(dt)
+            xn = (xx.float() * xx.float()).sum(-1) if cached else None
+            got = distance.pairwise_distance(qq, xx, metric, x_sq_norms=xn)
+            want = ref.pairwise_distance(qq, xx, metric, x_sq_norms=xn)
+            what = f"{metric} {dt} {'int' if integer else 'gauss'}"
+            if integer and metric in EXACT:
+                assert torch.equal(got, want), what
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3, msg=what)
+
+
+def test_atom_build_kernels_match_plain(card, monkeypatch):
+    """The atom graph's build (d=3, k=8, l2, LGD) on integer positions:
+    the same graph and counters through the kernels and the plain versions,
+    every kernel launched."""
+    x = _data((3000, 3), 47, "l2", True, card)
+    cfg = construct.BuildConfig(k=8, wave=256, lgd=True)
+
+    def seed_fn(wave, pos, W, n_valid):
+        g = torch.Generator().manual_seed(wave)
+        return torch.randint(0, max(n_valid, 1), (W, cfg.n_seeds), generator=g)
+
+    ops.reset_launch_counts()
+    g_k, st_k = construct.build(x, cfg, seed_fn=seed_fn, device=card)
+    brute.brute_force_knn(x, x, 8, device=card)
+    counts = ops.launch_counts()
+    assert all(counts[n] > 0 for n in ("gather_distance", "fused_expand", "pairwise_distance"))
+    _route_plain(monkeypatch)
+    g_p, st_p = construct.build(x, cfg, seed_fn=seed_fn, device=card)
+    _graph_fields_equal(g_k, g_p)
+    assert int(st_k.n_comps) == int(st_p.n_comps)

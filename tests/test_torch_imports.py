@@ -48,7 +48,7 @@ def test_no_jax_or_reference_package_in_sys_modules():
 def test_isolation_check_covers_every_module():
     """The subprocess above imports every module of the package, the mesh,
     checkpoint, distributed, build-variant and recommender modules among
-    them."""
+    them, and the training and GNN modules."""
     mods = _modules()
     for name in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
                  "repro_torch.train.checkpoint", "repro_torch.configs.knn_olg",
@@ -57,7 +57,11 @@ def test_isolation_check_covers_every_module():
                  "repro_torch.models.recsys", "repro_torch.configs.recsys_shapes",
                  "repro_torch.configs.deepfm", "repro_torch.configs.xdeepfm",
                  "repro_torch.configs.bst", "repro_torch.configs.mind",
-                 "repro_torch.data.recsys_data", "repro_torch.convert"):
+                 "repro_torch.data.recsys_data", "repro_torch.convert",
+                 "repro_torch.train.optimizer", "repro_torch.train.compress",
+                 "repro_torch.train.train_loop", "repro_torch.data.loader",
+                 "repro_torch.data.graphs", "repro_torch.models.mace",
+                 "repro_torch.configs.mace_cfg", "repro_torch.launch.train"):
         assert name in mods, name
 
 
@@ -74,21 +78,26 @@ def test_chip_smoke_imports_no_jax():
 
 
 @pytest.mark.parametrize("path", ["examples/retrieval_serving_torch.py",
+                                  "examples/molecule_graphs_torch.py",
                                   "src/repro_torch/configs/__init__.py"])
 def test_example_and_registry_sources_import_no_jax(path):
     _assert_imports_no_jax(path)
 
 
 def test_example_and_registry_import_no_jax():
-    """The port's example and registry, imported in a fresh process, bring
+    """The port's examples and registry, imported in a fresh process, bring
     in neither JAX nor the reference package."""
-    example = str(ROOT / "examples" / "retrieval_serving_torch.py")
+    examples = [str(ROOT / "examples" / f) for f in ("retrieval_serving_torch.py",
+                                                     "molecule_graphs_torch.py")]
     code = (
         "import importlib.util, sys\n"
+        "import repro_torch\n"
         "import repro_torch.configs as c\n"
         "[c.get(a) for a in c.names()]\n"
-        f"spec = importlib.util.spec_from_file_location('ex', {example!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "assert repro_torch.build is repro_torch.core.construct.build\n"
+        f"for ex in {examples!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', ex)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

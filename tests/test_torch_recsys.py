@@ -397,7 +397,7 @@ def test_params_carry_both_ways_and_refuse_another_layout():
 # configs and registry
 # ---------------------------------------------------------------------------
 
-PORTED = ("deepfm", "bst", "xdeepfm", "mind", "knn-lgd", "knn-olg")
+PORTED = ("mace", "deepfm", "bst", "xdeepfm", "mind", "knn-lgd", "knn-olg")
 NOT_PORTED = sorted(set(jconfigs.names()) - set(PORTED))
 
 
@@ -423,9 +423,10 @@ def test_registry_raises_for_an_unported_arch(arch):
 
 
 def test_registry_names_and_cells():
-    assert len(NOT_PORTED) == 6
+    assert len(NOT_PORTED) == 5
     assert tconfigs.names() == [a for a in jconfigs.names() if a in PORTED]
-    assert tconfigs.names(include_knn=False) == list(ARCHS[:1]) + ["bst", "xdeepfm", "mind"]
+    assert tconfigs.names(include_knn=False) == ["mace"] + list(ARCHS[:1]) + ["bst", "xdeepfm",
+                                                                             "mind"]
     want = [c for c in jconfigs.all_cells(include_knn=True) if c[0] in PORTED]
     assert tconfigs.all_cells(include_knn=True) == want
     with pytest.raises(KeyError, match="unknown arch"):
