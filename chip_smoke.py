@@ -173,7 +173,31 @@ needs one NVIDIA card and runs, in order:
    with the pod hop compressed and 20 without: every rank's parameters
    equal, uncompressed equal to one process within 1e-5 of each leaf's
    scale, compressed within 0.05 of uncompressed;
-11. a ``kernels`` JSON line: each kernel's launches in the build of its own
+11. the LM family on the card, parameters and tokens drawn from seeds:
+   (a) gemma3-1b at ``full_config()`` (26 layers, d 1152, vocab 262,144,
+   bf16, ~1.0B parameters): ``prefill`` of 2 x 32,768 tokens (prefill_32k's
+   length, the batch cut from 32), seconds, tokens/s, peak memory, finite
+   logits, the cache in the reference's (L, B, S, KV, dh) layout; (b) the
+   reference's decode tests at full width: 640 teacher-forced steps at
+   batch 2 through ``decode_step`` and ``decode_step_split`` from empty
+   caches of 1,024 positions (past the 512-slot rings' wrap), every step's
+   logits within ``LM_SPLIT_TOL`` of its largest, and ``prefill(1023)`` plus
+   one step against ``forward(1024)`` within ``LM_FWD_TOL``; (c) decode_32k:
+   batch 128 through the split caches at max_seq 32,768 (4 dense layers of
+   17.2 GB, 22 rings of 1.5 GB), filled from a seed to 32,736, 32 greedy
+   steps timed beside the step's byte bound; (d) AdamW through
+   ``make_train_step`` at train_4k's 4,096 tokens, remat on, 8 rows in 8
+   microbatches, 3 timed steps; (e) the fp32 forward on 64 tokens against
+   the CPU's float64 (``LM_F64_TOL``) and the bf16 one against it
+   (``LM_BF16_TOL``); (f) stablelm-1.6b and qwen2.5-3b whole, mixtral-8x7b
+   on 4 of its 32 layers and arctic-480b on 1 of its 35 (the whole models
+   do not fit 80 GB), one prefill of 4,096 tokens (mixtral 8,192, twice its
+   window) and 16 decode steps each (mixtral through ring caches), the MoE
+   drop rates; (g) ``launch.serve --mode lm`` for the five archs, ``launch.
+   train --arch gemma3-1b`` at the smoke and the full config, and
+   ``examples/train_lm_torch.py --tiny``, whose loss must fall.  The LM path
+   launches no hand kernel (its counts stay 0);
+12. a ``kernels`` JSON line: each kernel's launches in the build of its own
    precision (phase 4 for fp32, phase 5 for bf16 and int8, the ``data_bf16``
    build for the bf16-operand pairwise) and, for the three fp32 kernels, in
    the serving run (``serve_launches``) and in each phase 7 and 8 path
@@ -307,6 +331,37 @@ MACE_STEPS, MOLECULES, MOL_K = 5, 128, 2
 # DP_TRACK (the reference's bound, tests/test_distributed.py)
 DP_RANKS, DP_PODS, DP_STEPS, DP_LR, DP_RTOL, DP_TRACK = 4, 2, 20, 0.05, 1e-5, 0.05
 
+# phase 11: the LM family.  Parameters and tokens are drawn on the card from
+# these seeds.  (a) gemma3-1b's prefill at prefill_32k's length, the batch
+# cut from 32 to LM_PREFILL_B; (b) LM_PARITY_STEPS teacher-forced decode
+# steps at batch 2 from empty caches of LM_PARITY_SEQ positions, split
+# against dense, and prefill + one step against forward at that length;
+# (c) decode_32k at batch LM_DECODE_B, caches filled from a seed to
+# LM_DECODE_LEN; (d) AdamW at train_4k's sequence, the batch cut from 256 to
+# LM_TRAIN_BATCH in LM_TRAIN_ACCUM microbatches; (e) LM_F64_TOKENS tokens
+# against the CPU's float64; (f) the other archs, mixtral and arctic cut in
+# depth (a mixtral layer is 2.9 GB of bf16 and an arctic layer 26.8 GB: the
+# whole models do not fit 80 GB), each one prefill and LM_OTHER_STEPS
+# decode steps; (g) the example's steps
+LM_ARCHS = ("mixtral-8x7b", "arctic-480b", "stablelm-1.6b", "qwen2.5-3b", "gemma3-1b")
+LM_PARAM_SEED, LM_DATA_SEED = 107, 109
+LM_PREFILL_B, LM_PREFILL_S = 2, 32768
+LM_PARITY_SEQ, LM_PARITY_STEPS = 1024, 640
+LM_DECODE_B, LM_DECODE_SEQ, LM_DECODE_LEN, LM_DECODE_STEPS = 128, 32768, 32736, 32
+LM_TRAIN_BATCH, LM_TRAIN_ACCUM, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 8, 4096, 3
+LM_F64_TOKENS = 64
+LM_DEPTH_CUT = {"mixtral-8x7b": 4, "arctic-480b": 1}
+LM_OTHER_SEQ = {"stablelm-1.6b": 4096, "qwen2.5-3b": 4096, "mixtral-8x7b": 8192,
+                "arctic-480b": 4096}
+LM_OTHER_STEPS, LM_EXAMPLE_STEPS = 16, 40
+# tolerances, each a share of the largest logit: split against dense (the
+# dense step rounds its logits to bf16 before the softcap, the split one
+# after; ring and dense attention sum in other orders), prefill/decode
+# against forward (bf16 probabilities rounded at other points), fp32 on the
+# card against float64 (fp32 sums in another order), bf16 against fp32
+LM_SPLIT_TOL, LM_FWD_TOL, LM_F64_TOL, LM_BF16_TOL = 2.0 ** -5, 2.0 ** -5, 1e-4, 2.0 ** -3
+LM_HBM_BYTES_S = 3.35e12  # the H100 SXM's published memory rate
+
 # the kernels, the CUDA sources that replace the TPU kernels, and the
 # pallas_call sites with the storage type each form takes
 _GATHER, _EXPAND = "src/repro_torch/csrc/gather_dist.cu", "src/repro_torch/csrc/expand.cu"
@@ -374,7 +429,7 @@ def main() -> int:
                       smoke.phase_build_parity, smoke.phase_full, smoke.phase_compressed,
                       smoke.phase_serving, smoke.phase_parallel, smoke.phase_router,
                       smoke.phase_merge_shards, smoke.phase_mesh, smoke.phase_recsys,
-                      smoke.phase_train):
+                      smoke.phase_train, smoke.phase_lm):
             phase()
             print(f"  [{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except PhaseError as exc:
@@ -3094,6 +3149,345 @@ class Smoke:
               f"rank 0's; the world {t_world:.3f} s", flush=True)
         check(rel <= DP_RTOL, f"phase 10d: uncompressed ranks differ from one process by {rel:.3e}")
         check(dw < DP_TRACK, f"phase 10d: compressed drifts {dw:.3e} from uncompressed")
+
+    # --------------------------------------------------------------- phase 11
+    def phase_lm(self):
+        """11: the LM family on the card, parameters drawn from seeds: (a)
+        gemma3-1b's prefill at prefill_32k's length, (b) decode parity at
+        full width (split against dense past the ring's wrap, prefill plus
+        one step against forward), (c) decode_32k on the split cache, (d)
+        training, (e) fp32 against the CPU's float64 and bf16 against fp32,
+        (f) the other four archs at full width (mixtral and arctic cut in
+        depth), (g) the entry points.  The LM path launches no hand kernel:
+        its counts stay 0."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.models import transformer as tfm
+
+        self.ops.reset_launch_counts()
+        cfg = configs.get("gemma3-1b").full_config()
+        params = tfm.init_params(self.gen(LM_PARAM_SEED), cfg)
+        n_par = sum(v.numel() for v in params.values())
+        check(n_par == cfg.param_count(), f"phase 11: gemma3-1b has {n_par} parameters, "
+                                          f"param_count() {cfg.param_count()}")
+        self.lm_prefill(cfg, params)
+        self.lm_decode_parity(cfg, params)
+        self.lm_decode_32k(cfg, params)
+        self.lm_against_f64(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        self.lm_train(cfg)
+        torch.cuda.empty_cache()
+        for arch in LM_OTHER_SEQ:
+            self.lm_other(arch)
+            torch.cuda.empty_cache()
+        self.lm_entry_points()
+        counts = self.ops.launch_counts()
+        check(not any(counts.values()), f"phase 11: the LM path launched kernels {counts}")
+
+    def lm_tokens(self, cfg, shape, seed):
+        return self.torch.randint(0, cfg.vocab, shape, generator=self.gen(seed), device=self.dev,
+                                  dtype=self.torch.int32)
+
+    def lm_prefill(self, cfg, params):
+        """11a: ``prefill`` of LM_PREFILL_B x LM_PREFILL_S tokens (a 1,024-token
+        prefill first warms the library handles)."""
+        torch = self.torch
+        from repro_torch.models import transformer as tfm
+
+        toks = self.lm_tokens(cfg, (LM_PREFILL_B, LM_PREFILL_S), LM_DATA_SEED)
+        with torch.no_grad():
+            tfm.prefill(params, toks[:, :1024], cfg)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, cache = tfm.prefill(params, toks, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        shape = (cfg.n_layers, LM_PREFILL_B, LM_PREFILL_S, cfg.n_kv_heads, cfg.head_dim)
+        check(tuple(cache["k"].shape) == shape and tuple(cache["v"].shape) == shape
+              and cache["k"].dtype == torch.bfloat16, f"phase 11a: cache {tuple(cache['k'].shape)}")
+        check(tuple(logits.shape) == (LM_PREFILL_B, cfg.vocab)
+              and bool(torch.isfinite(logits).all()), "phase 11a: prefill logits not finite")
+        n = LM_PREFILL_B * LM_PREFILL_S
+        print(f"phase 11a: gemma3-1b full_config() ({cfg.param_count()} parameters, bf16) prefill "
+              f"{LM_PREFILL_B} x {LM_PREFILL_S} tokens: {secs:.3f} s ({n / secs:.1f} tokens/s), "
+              f"peak {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB over the parameters "
+              f"and tokens); cache {shape} bf16, {2 * cache['k'].numel() * 2 / 2**30:.3f} GiB",
+              flush=True)
+
+    def lm_decode_parity(self, cfg, params):
+        """11b: the reference's two decode tests at full width.  (1) From
+        empty caches at max_seq LM_PARITY_SEQ, LM_PARITY_STEPS teacher-forced
+        steps at batch 2 through ``decode_step`` (dense) and
+        ``decode_step_split`` (22 rings of 512 slots, 4 dense layers): every
+        step's logits within LM_SPLIT_TOL of the step's largest.  (2)
+        ``prefill`` of LM_PARITY_SEQ - 1 tokens, the cache padded by one, one
+        ``decode_step``: its logits, and the prefill's, against ``forward``
+        over all LM_PARITY_SEQ tokens, within LM_FWD_TOL of the largest."""
+        torch = self.torch
+        from repro_torch.models import transformer as tfm
+
+        S = LM_PARITY_SEQ
+        toks = self.lm_tokens(cfg, (2, S), LM_DATA_SEED + 1)
+        dense = tfm.init_cache(cfg, 2, S, device=self.dev)
+        split = tfm.init_split_cache(cfg, 2, S, device=self.dev)
+        check(split["k_loc"].shape[2] == cfg.local_window, "phase 11b: ring != window")
+        worst = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(LM_PARITY_STEPS):
+                ld, dense = tfm.decode_step(params, dense, toks[:, t], cfg)
+                ls, split = tfm.decode_step_split(params, split, toks[:, t], cfg)
+                err = float((ld - ls).abs().max()) / float(ld.abs().max())
+                worst = max(worst, err)
+                check(bool(torch.isfinite(ls).all()), f"phase 11b: step {t} logits not finite")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"phase 11b: {LM_PARITY_STEPS} teacher-forced steps at batch 2, max_seq {S} (the "
+              f"{cfg.local_window}-slot rings wrap at step {cfg.local_window}): split against "
+              f"dense, worst step {worst:.3e} of the largest logit (tolerance {LM_SPLIT_TOL:.3e}); "
+              f"{secs:.3f} s for both paths "
+              f"({1e3 * secs / (2 * LM_PARITY_STEPS):.3f} ms a step)", flush=True)
+        check(worst <= LM_SPLIT_TOL, f"phase 11b: split differs from dense by {worst:.3e}")
+        del dense, split
+        with torch.no_grad():
+            pre, cache = tfm.prefill(params, toks[:, :S - 1], cfg)
+            pad = (0, 0, 0, 0, 0, 1)
+            cache = {"k": torch.nn.functional.pad(cache["k"], pad),
+                     "v": torch.nn.functional.pad(cache["v"], pad), "len": cache["len"]}
+            dec, _ = tfm.decode_step(params, cache, toks[:, S - 1], cfg)
+            full = tfm.forward(params, toks, cfg)[0].float()
+        e_dec = float((dec - full[:, -1]).abs().max()) / float(full[:, -1].abs().max())
+        e_pre = float((pre - full[:, -2]).abs().max()) / float(full[:, -2].abs().max())
+        print(f"phase 11b: prefill({S - 1}) + one decode step against forward({S}): last logits "
+              f"within {e_dec:.3e} of the largest, the prefill's within {e_pre:.3e} (tolerance "
+              f"{LM_FWD_TOL:.3e})", flush=True)
+        check(max(e_dec, e_pre) <= LM_FWD_TOL,
+              f"phase 11b: prefill/decode differ from forward by {max(e_dec, e_pre):.3e}")
+
+    def lm_decode_32k(self, cfg, params):
+        """11c: decode_32k: batch LM_DECODE_B through ``decode_step_split``
+        at max_seq LM_DECODE_SEQ, caches filled from a seed with len
+        LM_DECODE_LEN, LM_DECODE_STEPS greedy steps, each timed, beside the
+        step's byte bound (every cache byte a step reads, the parameters,
+        the logits written) at the card's 3.35 TB/s."""
+        torch = self.torch
+        from repro_torch.models import transformer as tfm
+
+        B, S = LM_DECODE_B, LM_DECODE_SEQ
+        cache = tfm.init_split_cache(cfg, B, S, device=self.dev)
+        g = self.gen(LM_DATA_SEED + 2)
+        for name in ("k_loc", "v_loc", "k_glob", "v_glob"):
+            for layer in cache[name]:
+                layer.copy_(torch.randn(layer.shape, generator=g, device=self.dev,
+                                        dtype=torch.bfloat16))
+        cache["len"].fill_(LM_DECODE_LEN)
+        cache_bytes = sum(cache[n].numel() * 2 for n in ("k_loc", "v_loc", "k_glob", "v_glob"))
+        tok = self.lm_tokens(cfg, (B,), LM_DATA_SEED + 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        with torch.no_grad():
+            for _ in range(LM_DECODE_STEPS):
+                t0 = time.perf_counter()
+                logits, cache = tfm.decode_step_split(params, cache, tok, cfg)
+                tok = logits.argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(bool(torch.isfinite(logits).all()), "phase 11c: logits not finite")
+        peak = torch.cuda.max_memory_allocated()
+        n_loc, n_glob = cache["k_loc"].shape[0], cache["k_glob"].shape[0]
+        # bytes a step must move: the K/V it reads (the rings whole, the
+        # dense layers up to len), every parameter but the embedding's
+        # unread rows (the tied head reads all of them), the logits
+        read_kv = 2 * B * cfg.n_kv_heads * cfg.head_dim * 2 * (
+            n_loc * cfg.local_window + n_glob * (LM_DECODE_LEN + LM_DECODE_STEPS // 2))
+        par_bytes = sum(v.numel() * v.element_size() for v in params.values())
+        bound_ms = (read_kv + par_bytes + B * cfg.vocab * 4) / LM_HBM_BYTES_S * 1e3
+        mean = sum(ms[1:]) / len(ms[1:])
+        print(f"phase 11c: decode_32k, gemma3-1b batch {B}, max_seq {S}, len {LM_DECODE_LEN}: split "
+              f"caches {cache_bytes / 1e9:.3f} GB ({n_glob} dense layers "
+              f"{cache['k_glob'].numel() * 4 / 1e9:.3f} GB, {n_loc} rings "
+              f"{cache['k_loc'].numel() * 4 / 1e9:.3f} GB; a dense cache would be "
+              f"{2 * cfg.n_layers * B * S * cfg.n_kv_heads * cfg.head_dim * 2 / 1e9:.3f} GB): "
+              f"{mean:.3f} ms per step over steps 2-{LM_DECODE_STEPS} (first {ms[0]:.3f} ms; "
+              f"{B / mean * 1e3:.1f} tokens/s) against a byte bound of {bound_ms:.3f} ms "
+              f"({(read_kv + par_bytes) / 1e9:.3f} GB at 3.35 TB/s); peak "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+
+    def lm_against_f64(self, cfg, params):
+        """11e: the forward at compute_dtype float32 (TF32 off) on 1 x
+        LM_F64_TOKENS tokens against the same parameters in float64 on the
+        CPU: within LM_F64_TOL of the largest logit.  The configured bf16
+        forward against that fp32 forward: within LM_BF16_TOL."""
+        torch = self.torch
+        from repro_torch.models import transformer as tfm
+
+        toks = self.lm_tokens(cfg, (1, LM_F64_TOKENS), LM_DATA_SEED + 4)
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        c64 = dataclasses.replace(cfg, compute_dtype="float64")
+        with torch.no_grad():
+            f32 = tfm.forward(params, toks, c32)[0]
+            bf = tfm.forward(params, toks, cfg)[0].float()
+            t0 = time.perf_counter()
+            p64 = {k: v.to("cpu", torch.float64) for k, v in params.items()}
+            f64 = tfm.forward(p64, toks.cpu(), c64)[0]
+            t_cpu = time.perf_counter() - t0
+            del p64
+        e32 = float((f32.cpu().double() - f64).abs().max()) / float(f64.abs().max())
+        ebf = float((bf - f32).abs().max()) / float(f32.abs().max())
+        print(f"phase 11e: gemma3-1b forward on {LM_F64_TOKENS} tokens: fp32 on the card against "
+              f"float64 on the CPU ({t_cpu:.1f} s there) within {e32:.3e} of the largest logit "
+              f"(tolerance {LM_F64_TOL:.0e}); the bf16 forward against the fp32 one within "
+              f"{ebf:.3e} (tolerance {LM_BF16_TOL:.3e})", flush=True)
+        check(e32 <= LM_F64_TOL, f"phase 11e: fp32 differs from float64 by {e32:.3e}")
+        check(ebf <= LM_BF16_TOL, f"phase 11e: bf16 differs from fp32 by {ebf:.3e}")
+
+    def lm_train(self, cfg):
+        """11d: AdamW through ``make_train_step`` at train_4k's sequence,
+        remat on: LM_TRAIN_BATCH rows in LM_TRAIN_ACCUM microbatches, one
+        warm-up and LM_TRAIN_STEPS timed steps (skip-ahead batches)."""
+        torch = self.torch
+        from repro_torch.data import loader
+        from repro_torch.models import transformer as tfm
+        from repro_torch.train import optimizer as opt_lib
+        from repro_torch.train import train_loop
+
+        check(cfg.remat, "phase 11d: gemma3-1b's full config trains without remat")
+        params = tfm.init_params(self.gen(LM_PARAM_SEED), cfg)
+        ocfg = opt_lib.OptConfig(name="adamw", lr=TRAIN_LR)
+        step = train_loop.make_train_step(lambda p, b: tfm.loss_fn(p, b["tokens"], cfg), ocfg,
+                                          accum_steps=LM_TRAIN_ACCUM)
+        data = loader.lm_batches(LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab, seed=TRAIN_SEED,
+                                 device=self.dev)
+        state = (params, opt_lib.init_opt_state(params, ocfg))
+        del params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *state, m0 = step(*state, data.batch(0))
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t0) * 1e3
+        state, ms, metrics, peak = self.timed_steps(
+            "phase 11d gemma3-1b", step, state,
+            [lambda s=s: data.batch(s) for s in range(1, LM_TRAIN_STEPS + 1)])
+        n = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        mean = sum(ms) / len(ms)
+        print(f"phase 11d: gemma3-1b full_config() training, AdamW, remat, {LM_TRAIN_BATCH} x "
+              f"{LM_TRAIN_SEQ} tokens a step in {LM_TRAIN_ACCUM} microbatches: {mean:.3f} ms per "
+              f"step (steps {', '.join(f'{t:.3f}' for t in ms)}; warm-up {warm:.3f}), "
+              f"{n / mean * 1e3:.1f} tokens/s, peak {peak / 2**30:.3f} GiB; loss "
+              f"{float(m0['loss']):.4f} -> {metrics[-1]['loss']:.4f}, grad_norm "
+              f"{', '.join(f'{m['grad_norm']:.4f}' for m in metrics)}", flush=True)
+        del state
+
+    def lm_other(self, arch):
+        """11f: one of the other four archs at its published widths
+        (mixtral and arctic cut to LM_DEPTH_CUT layers): one prefill of
+        LM_OTHER_SEQ tokens (mixtral twice its window) and LM_OTHER_STEPS
+        greedy decode steps (mixtral through ring caches of its window,
+        filled from the prefill's cache), the MoE drop rates read from
+        the prefill's dispatches."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.models import moe as moe_lib
+        from repro_torch.models import transformer as tfm
+
+        full = configs.get(arch).full_config()
+        cfg = dataclasses.replace(full, n_layers=LM_DEPTH_CUT.get(arch, full.n_layers))
+        S = LM_OTHER_SEQ[arch]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tfm.init_params(self.gen(LM_PARAM_SEED), cfg)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        toks = self.lm_tokens(cfg, (1, S), LM_DATA_SEED + 5)
+        drops, apply = [], moe_lib.apply_moe
+
+        def recording(*args, **kw):
+            out, aux = apply(*args, **kw)
+            drops.append(aux["moe_drop_rate"])
+            return out, aux
+
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            moe_lib.apply_moe = recording
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = tfm.prefill(params, toks, cfg)
+                torch.cuda.synchronize()
+                t_pre = time.perf_counter() - t0
+            finally:
+                moe_lib.apply_moe = apply
+            n_moe = len(drops)
+            split = cfg.window is not None
+            if split:  # the prefill's last window of positions into rings
+                W = cfg.window
+                ring = tfm.init_split_cache(cfg, 1, S + LM_OTHER_STEPS, device=self.dev)
+                slots = torch.arange(S - W, S, device=self.dev) % W
+                ring["k_loc"][:, :, slots] = cache["k"][:, :, S - W:]
+                ring["v_loc"][:, :, slots] = cache["v"][:, :, S - W:]
+                ring["len"] = cache["len"]
+                cache, step_fn = ring, tfm.decode_step_split
+            else:
+                pad = (0, 0, 0, 0, 0, LM_OTHER_STEPS)
+                cache = {"k": torch.nn.functional.pad(cache["k"], pad),
+                         "v": torch.nn.functional.pad(cache["v"], pad), "len": cache["len"]}
+                step_fn = tfm.decode_step
+            tok = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LM_OTHER_STEPS):
+                logits, cache = step_fn(params, cache, tok, cfg)
+                tok = logits.argmax(-1).to(torch.int32)
+                check(bool(torch.isfinite(logits).all()), f"phase 11f: {arch} logits not finite")
+            torch.cuda.synchronize()
+            t_dec = (time.perf_counter() - t0) * 1e3 / LM_OTHER_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        n_par = sum(v.numel() for v in params.values())
+        drop = ""
+        if n_moe:
+            rates = torch.stack(drops[:n_moe]).float().cpu()
+            drop = (f"; MoE ({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}) drop rate over "
+                    f"the prefill's {n_moe} layer(s): mean {float(rates.mean()):.4f}, max "
+                    f"{float(rates.max()):.4f}")
+        print(f"phase 11f: {arch} full widths, {cfg.n_layers} of {full.n_layers} layers ({n_par} "
+              f"parameters, {n_par * 2 / 1e9:.3f} GB bf16, drawn in {t_init:.3f} s): prefill 1 x {S} "
+              f"tokens {t_pre:.3f} s ({S / t_pre:.1f} tokens/s); {LM_OTHER_STEPS} decode steps "
+              f"through {'ring caches of its ' + str(cfg.window) + '-token window' if split else 'the dense cache'} "
+              f"{t_dec:.3f} ms per step; peak {peak / 2**30:.3f} GiB{drop}", flush=True)
+        del params, cache
+
+    def lm_entry_points(self):
+        """11g: the launchers' ``main`` on the card, as ``python -m`` runs
+        them: ``serve --mode lm`` for each LM arch, ``train --arch
+        gemma3-1b`` at the smoke config and at ``--full-config``, and
+        ``examples/train_lm_torch.py --tiny``, whose loss must fall."""
+        import importlib.util
+
+        from repro_torch.launch import serve, train
+
+        for arch in LM_ARCHS:
+            rec = serve.main(["--mode", "lm", "--arch", arch])
+            check(tuple(rec["tokens"].shape) == (4, 16), f"phase 11g: serve {arch}")
+        for argv in (["--steps", "3"], ["--full-config", "--steps", "2"]):
+            rec = train.main(["--arch", "gemma3-1b", *argv])
+            check(all(math.isfinite(float(v)) for v in rec["metrics"].values()),
+                  f"phase 11g: train {argv}: {rec['metrics']}")
+        spec = importlib.util.spec_from_file_location("train_lm_torch",
+                                                      ROOT / "examples" / "train_lm_torch.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        rec = example.main(["--tiny", "--steps", str(LM_EXAMPLE_STEPS),
+                            "--ckpt", str(ROOT / "build" / "lm_ckpt")])
+        print(f"phase 11g: serve --mode lm for {len(LM_ARCHS)} archs, train --arch gemma3-1b "
+              f"(smoke, then --full-config), examples/train_lm_torch.py --tiny: loss "
+              f"{rec['first']:.4f} -> {rec['last']:.4f} in {LM_EXAMPLE_STEPS} steps, "
+              f"{rec['seconds']:.3f} s", flush=True)
 
     def kernel_records(self):
         out = []

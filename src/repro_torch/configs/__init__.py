@@ -3,9 +3,10 @@
 
 Each module exports ``ARCH``, ``FAMILY``, ``SHAPES``, ``SKIP``,
 ``full_config()`` and ``smoke_config()`` with the reference's values.  The
-registry maps the archs ported so far, the four recommender models, MACE
-and the two k-NN builders; the reference's other archs (the LMs) raise,
-naming the ROADMAP item that ports them.
+registry maps every arch of the reference, in its order: the five LMs, MACE,
+the four recommender models and the two k-NN builders.  An arch listed in
+``_NOT_PORTED`` would raise, naming the ROADMAP item that ports it; none is
+left.
 """
 
 from __future__ import annotations
@@ -14,6 +15,11 @@ import importlib
 from typing import List
 
 _ARCH_MODULES = {
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "mace": "repro_torch.configs.mace_cfg",
     "deepfm": "repro_torch.configs.deepfm",
     "bst": "repro_torch.configs.bst",
@@ -25,10 +31,7 @@ _ARCH_MODULES = {
 }
 
 # the reference's archs not ported yet, and the ROADMAP item that ports each
-_NOT_PORTED = {
-    "mixtral-8x7b": "13c", "arctic-480b": "13c", "stablelm-1.6b": "13c",
-    "qwen2.5-3b": "13c", "gemma3-1b": "13c",
-}
+_NOT_PORTED: dict = {}
 
 
 def get(arch: str):

@@ -8,7 +8,8 @@
 ``encoded_from_numpy`` carries a reference ``EncodedData``;
 ``recsys_params_from_numpy`` and ``recsys_params_to_numpy`` carry a
 recommender model's parameter tree, ``mace_params_from_numpy`` and
-``mace_params_to_numpy`` MACE's, and ``opt_state_from_numpy`` and
+``mace_params_to_numpy`` MACE's, ``lm_params_from_numpy`` and
+``lm_params_to_numpy`` an LM's, and ``opt_state_from_numpy`` and
 ``opt_state_to_numpy`` an optimizer's state (AdamW ``m``/``v``/``step``,
 Adafactor ``vr``/``vc``/``step``, SGD ``step``).  Nothing here imports the
 reference.
@@ -95,19 +96,23 @@ def build_config_from_dict(d: dict) -> BuildConfig:
     return BuildConfig(**{key: v for key, v in d.items() if key in _FIELDS})
 
 
+def _from_numpy(a) -> torch.Tensor:
+    """A numpy array as a tensor, bit for bit.  JAX's bfloat16 arrives as
+    ``ml_dtypes.bfloat16``, which torch cannot read: its bits are carried
+    through int16 and viewed as ``torch.bfloat16``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
 def encoded_from_numpy(fields: dict, device="cpu") -> EncodedData:
     """Reference ``EncodedData`` fields as numpy (``{name: np.asarray(field)
     or None}``) -> the port's ``EncodedData``.  JAX's bfloat16 arrives as
-    ``ml_dtypes.bfloat16``, which torch cannot read: its bits are carried
-    through int16."""
+    ``ml_dtypes.bfloat16``, which torch cannot read (``_from_numpy``)."""
 
     def tensor(a):
-        if a is None:
-            return None
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
-        return torch.from_numpy(a.copy()).to(device)
+        return None if a is None else _from_numpy(a).to(device)
 
     return EncodedData(**{name: tensor(fields.get(name)) for name in EncodedData._fields})
 
@@ -169,6 +174,34 @@ def mace_params_from_numpy(tree: dict, cfg, device="cpu") -> dict:
             raise ValueError(f"{cfg.name} params[{k!r}]: shape {a.shape} != {shape}")
         out[k] = torch.from_numpy(a.copy()).to(device=device, dtype=dt)
     return out
+
+
+def lm_params_from_numpy(tree: dict, cfg, device="cpu") -> dict:
+    """A reference LM parameter dict of numpy leaves (bf16 leaves as
+    ``ml_dtypes.bfloat16``) -> the port's, each leaf in the dtype the
+    port's ``transformer.init_params`` gives it (``cfg.param_dtype``, the
+    router fp32) on ``device``: bit for bit where the dtypes agree.  The
+    keys and shapes must be ``init_params``'s for ``cfg``; raises naming the
+    first that differs."""
+    from repro_torch.models import transformer
+
+    want = transformer.param_shapes(cfg)
+    if set(tree) != set(want):
+        raise ValueError(f"{cfg.name} params: keys {sorted(tree)} != {sorted(want)}")
+    out = {}
+    for k, (shape, dt) in want.items():
+        a = np.asarray(tree[k])
+        if a.shape != shape:
+            raise ValueError(f"{cfg.name} params[{k!r}]: shape {a.shape} != {shape}")
+        out[k] = _from_numpy(a).to(device=device, dtype=dt)
+    return out
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The port's LM parameter dict -> {name: numpy array}, the reference's
+    layout; bf16 leaves widen to float32 (exactly: numpy has no bfloat16)."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+            for k, v in params.items()}
 
 
 _OPT_KEYS = {frozenset({"m", "v", "step"}), frozenset({"vr", "vc", "step"}), frozenset({"step"})}

@@ -1,8 +1,11 @@
-"""Serving launcher: batched retrieval requests against an online index.
+"""Serving launcher: batched retrieval requests against an online index,
+or token generation from an LM.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
         --n-items 8000 --d 16 --requests 20 --topk 10 \\
         [--shards 4] [--snapshot PATH] [--trace PATH] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+        --arch gemma3-1b [--batch 4 --prompt-len 32 --gen 16] [--device cpu]
 
 Builds an ``OnlineIndex`` over unit-norm N(0,1) items under the inner
 product, optionally round-trips it through a snapshot, and serves 4-query
@@ -10,8 +13,12 @@ requests through the instrumented ``ServingLoop``, reporting p50/p99
 latency, QPS, recall and scanning rate.  ``--shards S`` (S > 1) builds a
 ``ShardedIndex`` of S shards instead and serves each request through its
 fan-out (``ShardedIndex.retrieve``, one ``router/shard<s>`` span per shard
-in the trace), reporting p50/p99 latency and QPS.  Runs on the card unless
-``--device cpu``.  ``--mode lm`` is not ported yet.
+in the trace), reporting p50/p99 latency and QPS.
+
+``--mode lm`` serves an LM arch's smoke config (parameters from a seeded
+generator): ``prefill`` of a random prompt, the cache padded by ``--gen``
+positions, then greedy ``decode_step``s, printing tokens/s and a sample.
+Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -124,9 +131,42 @@ def serve_retrieval(args) -> dict:
     return rec
 
 
+def serve_lm(args) -> dict:
+    """Prefill a (batch, prompt_len) random prompt, then decode ``--gen``
+    tokens greedily (the first from the prefill's logits)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+
+    dev = device_lib.resolve(args.device)
+    cfg = configs.get(args.arch).smoke_config()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = tfm.prefill(params, prompt, cfg)
+        # grow the cache for generation
+        pad = (0, 0, 0, 0, 0, args.gen)
+        cache = {"k": torch.nn.functional.pad(cache["k"], pad),
+                 "v": torch.nn.functional.pad(cache["v"], pad), "len": cache["len"]}
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out = [tok]
+        for _ in range(args.gen - 1):
+            logits, cache = tfm.decode_step(params, cache, tok, cfg)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            out.append(tok)
+        sample = torch.stack(out, 1)[0][:8].tolist()  # to the host: the work is done
+    dt = time.perf_counter() - t0
+    total = args.batch * args.gen
+    print(f"{args.arch} on {dev}: prefill {args.prompt_len} + decode {args.gen} tokens x "
+          f"{args.batch} in {dt:.2f}s ({total / dt:.0f} tok/s); sample: {sample}")
+    return {"tokens": torch.stack(out, 1), "seconds": dt, "tok_s": total / dt}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["retrieval", "lm"], default="retrieval")
+    ap.add_argument("--arch", default="gemma3-1b", help="the LM of --mode lm")
     ap.add_argument("--n-items", type=int, default=8000)
     ap.add_argument("--d", type=int, default=16)
     ap.add_argument("--shards", type=int, default=1,
@@ -137,11 +177,13 @@ def main(argv=None):
     ap.add_argument("--trace", type=str, default=None, metavar="PATH",
                     help="write an obs.JsonlTracker trace (spans + metrics) of the run")
     ap.add_argument("--topk", type=int, default=10)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default=None, help="default: the card")
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError(
-            "--mode lm needs the model substrate, not ported yet (ROADMAP Queue A item 13c)")
+        return serve_lm(args)
     return serve_retrieval(args)
 
 

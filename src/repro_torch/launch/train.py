@@ -3,8 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
         --steps 200 --batch 8 --ckpt build/ck --ckpt-every 50
 
-Runs a training loop for the recommender (``deepfm``, ``xdeepfm``, ``bst``,
-``mind``) and GNN (``mace``) families: the eager train step
+Runs a training loop for the LM (``gemma3-1b``, ``stablelm-1.6b``,
+``qwen2.5-3b``, ``mixtral-8x7b``, ``arctic-480b``: next-token loss over
+``loader.lm_batches`` of ``--batch`` x ``--seq`` tokens), recommender
+(``deepfm``, ``xdeepfm``, ``bst``, ``mind``) and GNN (``mace``) families:
+the eager train step
 (``train.train_loop``), AdamW, deterministic skip-ahead batches
 (``data.loader``), periodic checkpoints and resume.  The smoke config by
 default; ``--full-config`` the published one.  ``--accum-steps`` splits
@@ -13,8 +16,8 @@ It runs on the card unless given ``--device cpu``.
 
 Checkpoints hold ``(params, opt_state)`` in the reference's layout (leaf
 ``0/<param>`` and ``1/m/<param>``, ``1/v/<param>``, ``1/step``), so one
-written by ``repro.launch.train`` restores here and the other way round.
-The LM family raises: it is ROADMAP Queue A item 13c.
+written by ``repro.launch.train`` restores here and the other way round
+(bf16 leaves, the full LM configs', are written widened to fp32).
 """
 
 from __future__ import annotations
@@ -59,10 +62,20 @@ def unflatten(flat: dict) -> dict:
     return out
 
 
-def setup(arch: str, *, full: bool, batch: int, dev: torch.device):
+def setup(arch: str, *, full: bool, batch: int, dev: torch.device, seq: int = 128):
     """(params, loss_fn, loader) of one arch on ``dev``."""
     mod = configs.get(arch)
     gen = torch.Generator(device=dev).manual_seed(PARAM_SEED)
+    if mod.FAMILY == "lm":
+        from repro_torch.models import transformer as tfm
+
+        cfg = mod.full_config() if full else mod.smoke_config()
+        params = tfm.init_params(gen, cfg)
+
+        def loss(p, b):
+            return tfm.loss_fn(p, b["tokens"], cfg)
+
+        return params, loss, loader.lm_batches(batch, seq, cfg.vocab, device=dev)
     if mod.FAMILY == "recsys":
         from repro_torch.models import recsys as rec
 
@@ -106,7 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--arch", required=True, help="one of " + ", ".join(configs.names(False)))
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=128, help="LM sequence length (item 13c)")
+    ap.add_argument("--seq", type=int, default=128, help="LM sequence length")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
@@ -118,9 +131,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default=None, help="default: the card")
     args = ap.parse_args(argv)
 
-    mod = configs.get(args.arch)  # raises for the LM archs, naming item 13c
+    mod = configs.get(args.arch)
     dev = device_lib.resolve(args.device)
-    params, loss, data = setup(args.arch, full=args.full_config, batch=args.batch, dev=dev)
+    params, loss, data = setup(args.arch, full=args.full_config, batch=args.batch, dev=dev,
+                               seq=args.seq)
     ocfg = opt_lib.OptConfig(name="adamw", lr=args.lr)
     opt_state = opt_lib.init_opt_state(params, ocfg)
     step_fn = train_loop.make_train_step(loss, ocfg, accum_steps=args.accum_steps)

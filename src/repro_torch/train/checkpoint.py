@@ -31,8 +31,11 @@ _SHARD = "shard-0"
 
 
 def _host(v) -> np.ndarray:
-    """A tensor's array, or an int as an int32 scalar."""
+    """A tensor's array (bf16 widened to fp32, exactly: numpy has no
+    bfloat16), or an int as an int32 scalar."""
     if isinstance(v, torch.Tensor):
+        if v.dtype == torch.bfloat16:
+            v = v.float()
         return v.detach().cpu().numpy()
     return np.asarray(v, np.int32)
 
@@ -60,8 +63,8 @@ def load_manifest(path: str) -> dict:
 
 def restore(path: str, like: dict, *, strict_shapes: bool = True, device=None) -> tuple[dict, int]:
     """Read the leaves named by ``like`` (name -> tensor or int) onto
-    ``device`` (None: the card, raising without one); an int leaf comes back
-    as an int.  Raises ``KeyError`` for a leaf the checkpoint lacks and, with
+    ``device`` (None: the card, raising without one), each in its ``like``
+    leaf's dtype; an int leaf comes back as an int.  Raises ``KeyError`` for a leaf the checkpoint lacks and, with
     ``strict_shapes``, ``ValueError`` for a shape that differs.  Returns
     (tree, step)."""
     dev = device_lib.resolve(device)
@@ -76,7 +79,7 @@ def restore(path: str, like: dict, *, strict_shapes: bool = True, device=None) -
         want = () if is_int else tuple(leaf.shape)
         if strict_shapes and tuple(arr.shape) != want:
             raise ValueError(f"leaf {name!r}: checkpoint shape {arr.shape} != target {want}")
-        out[name] = int(arr) if is_int else torch.from_numpy(np.array(arr)).to(dev)
+        out[name] = int(arr) if is_int else torch.from_numpy(np.array(arr)).to(dev, leaf.dtype)
     return out, int(manifest["step"])
 
 

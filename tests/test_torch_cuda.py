@@ -653,6 +653,80 @@ def test_recsys_scores_on_the_card_match_the_cpu(card, arch):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [((128, 1, 4, 256), (128, 1, 256, 4096)),
+                                   ((2, 1, 8, 1024, 256), (2, 1, 8, 256, 512)),
+                                   ((1, 8, 3, 7, 128), (1, 8, 3, 128, 9))])
+def test_lm_bf16_product_with_fp32_output_matches_the_widened_one(card, monkeypatch, shape):
+    """``attention.matmul_f32`` on bf16 operands on the card (cuBLAS with
+    fp32 output) against the same product of the operands widened to fp32:
+    one function, sums in another order (rtol 1e-5, 1e-6 of the largest)."""
+    from repro_torch.models import attention
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=card).manual_seed(6)
+    a, b = (torch.randn(s, generator=g, device=card).bfloat16() for s in shape)
+    got = attention.matmul_f32(a, b)
+    want = torch.matmul(a.float(), b.float())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+
+
+LM_ARCHS = ["mixtral-8x7b", "arctic-480b", "stablelm-1.6b", "qwen2.5-3b", "gemma3-1b"]
+
+
+def _lm_close(got, want, rel):
+    """Within ``rel`` of the largest element (and 1e-5 of each, at fp32)."""
+    got, want = got.float().cpu(), want.float()
+    torch.testing.assert_close(got, want, rtol=1e-5 if rel < 1e-3 else 0,
+                               atol=rel * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_forward_and_decode_on_the_card_match_the_cpu(card, monkeypatch, arch, compute):
+    """Each LM's ``smoke_config()`` on the card against the same parameters
+    and tokens on the CPU: forward logits, prefill, and 40 steps of
+    ``decode_step`` and ``decode_step_split`` (past gemma3's 16-slot ring
+    wrap and mixtral's 32).  fp32 compute (TF32 off, fp32 decode caches):
+    rtol 1e-5 and 1e-5 of the largest logit (fp32 sums in another order,
+    through 2-3 layers and, in decode, every earlier step's K/V; a bf16
+    cache would round a K/V element the other way now and then and move
+    the logits by up to 4e-5 of the largest, as a first card run showed);
+    prefill's bf16 cache within one bf16 rounding.  The configs' bf16:
+    2^-5 of the largest (bf16 products rounded in another order; against
+    the reference on the CPU they differ by at most 0.68%)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(configs.get(arch).smoke_config(), compute_dtype=compute)
+    fp32 = compute == "float32"
+    rel = 1e-5 if fp32 else 2.0 ** -5
+    cache_dtype = torch.float32 if fp32 else torch.bfloat16
+    params = tfm.init_params(torch.Generator().manual_seed(4), cfg)
+    on_card = {k: v.to(card) for k, v in params.items()}
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        _lm_close(tfm.forward(on_card, toks.to(card), cfg)[0], tfm.forward(params, toks, cfg)[0],
+                  rel)
+        lg, cg = tfm.prefill(on_card, toks.to(card), cfg)
+        lc, cc = tfm.prefill(params, toks, cfg)
+        _lm_close(lg, lc, rel)
+        _lm_close(cg["k"], cc["k"], max(rel, 2.0 ** -7))
+        for split in (False, True):
+            init = tfm.init_split_cache if split else tfm.init_cache
+            step = tfm.decode_step_split if split else tfm.decode_step
+            c_card = init(cfg, 2, 72, cache_dtype, device=card)
+            c_cpu = init(cfg, 2, 72, cache_dtype, device="cpu")
+            for t in range(40):
+                lg, c_card = step(on_card, c_card, toks[:, t].to(card), cfg)
+                lc, c_cpu = step(params, c_cpu, toks[:, t], cfg)
+                assert torch.isfinite(lg).all()
+                _lm_close(lg, lc, rel)
+
+
 # ------------------------------------------------ atom positions: d = 1, 2, 3
 
 # d below one 16-byte vector: every kernel takes its scalar loads, a row's

@@ -48,7 +48,7 @@ def test_no_jax_or_reference_package_in_sys_modules():
 def test_isolation_check_covers_every_module():
     """The subprocess above imports every module of the package, the mesh,
     checkpoint, distributed, build-variant and recommender modules among
-    them, and the training and GNN modules."""
+    them, the training and GNN modules, and the LM modules and configs."""
     mods = _modules()
     for name in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
                  "repro_torch.train.checkpoint", "repro_torch.configs.knn_olg",
@@ -61,7 +61,12 @@ def test_isolation_check_covers_every_module():
                  "repro_torch.train.optimizer", "repro_torch.train.compress",
                  "repro_torch.train.train_loop", "repro_torch.data.loader",
                  "repro_torch.data.graphs", "repro_torch.models.mace",
-                 "repro_torch.configs.mace_cfg", "repro_torch.launch.train"):
+                 "repro_torch.configs.mace_cfg", "repro_torch.launch.train",
+                 "repro_torch.models.attention", "repro_torch.models.moe",
+                 "repro_torch.models.transformer", "repro_torch.configs.lm_shapes",
+                 "repro_torch.configs.gemma3_1b", "repro_torch.configs.stablelm_1_6b",
+                 "repro_torch.configs.qwen2_5_3b", "repro_torch.configs.mixtral_8x7b",
+                 "repro_torch.configs.arctic_480b"):
         assert name in mods, name
 
 
@@ -79,6 +84,7 @@ def test_chip_smoke_imports_no_jax():
 
 @pytest.mark.parametrize("path", ["examples/retrieval_serving_torch.py",
                                   "examples/molecule_graphs_torch.py",
+                                  "examples/train_lm_torch.py",
                                   "src/repro_torch/configs/__init__.py"])
 def test_example_and_registry_sources_import_no_jax(path):
     _assert_imports_no_jax(path)
@@ -88,7 +94,8 @@ def test_example_and_registry_import_no_jax():
     """The port's examples and registry, imported in a fresh process, bring
     in neither JAX nor the reference package."""
     examples = [str(ROOT / "examples" / f) for f in ("retrieval_serving_torch.py",
-                                                     "molecule_graphs_torch.py")]
+                                                     "molecule_graphs_torch.py",
+                                                     "train_lm_torch.py")]
     code = (
         "import importlib.util, sys\n"
         "import repro_torch\n"

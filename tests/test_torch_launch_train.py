@@ -8,8 +8,10 @@
 * Checkpoints cross packages: one written by ``repro.launch.train``
   restores here (every leaf bit for bit, training resumes from its step),
   and one written here restores in ``repro.train.checkpoint``.
-* An LM arch raises, naming ROADMAP item 13c; without a card the launcher
-  raises unless given ``--device cpu``.
+* gemma3-1b's smoke config trains for 2 steps with finite metrics; without
+  a card the launcher raises unless given ``--device cpu``.
+* A bf16 parameter (the full LM configs store bf16) goes through a
+  checkpoint bit for bit.
 """
 
 import sys
@@ -99,15 +101,34 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
     assert np.array_equal(np.asarray(p["table"]), mine["0/table"].numpy())
 
 
-def test_lm_arch_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        run("--arch", "gemma3-1b", "--steps", 1)
+def test_lm_arch_trains_on_cpu(capsys):
+    rec = run("--arch", "gemma3-1b", "--steps", 2, "--batch", 4, "--seq", 48)
+    out = capsys.readouterr().out
+    assert "training gemma3-1b (lm) on cpu" in out and "trained 2 steps" in out
+    assert set(rec["metrics"]) == {"loss", "grad_norm", "xent"}
+    assert all(np.isfinite(float(v)) for v in rec["metrics"].values())
+    assert int(rec["opt_state"]["step"]) == 2 and rec["params"]["wq"].shape[0] == 3
+
+
+def test_bf16_leaves_checkpoint_bit_for_bit(tmp_path):
+    w = torch.randn(5, 7).bfloat16()
+    tckpt.save(str(tmp_path), {"0/w": w, "1/step": 3}, step=3)
+    back, step = tckpt.restore(str(tmp_path), {"0/w": torch.zeros(5, 7, dtype=torch.bfloat16),
+                                               "1/step": 0}, device="cpu")
+    assert step == 3 and back["1/step"] == 3
+    assert back["0/w"].dtype == torch.bfloat16 and torch.equal(back["0/w"], w)
 
 
 def test_launcher_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--arch", "deepfm", "--steps", "1"])
+
+
+def test_lm_launcher_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--arch", "gemma3-1b", "--steps", "1"])
 
 
 def test_flatten_names_are_the_references():

@@ -311,8 +311,34 @@ def test_launcher_runs_on_cpu(tmp_path, capsys):
     assert rec["n_served"] == 16 and rec["p99_latency_ms"] >= rec["p50_latency_ms"] > 0
     spans = {e["name"] for e in load_events(str(tmp_path / "router.jsonl")) if e.get("event") == "span"}
     assert {"router/shard0", "router/shard1"} <= spans
-    with pytest.raises(NotImplementedError, match="item 13"):
-        serve_launch.main(["--mode", "lm", "--device", "cpu"])
+    rec = serve_launch.main(["--mode", "lm", "--device", "cpu", "--gen", "4"])
+    assert "gemma3-1b on cpu: prefill 32 + decode 4 tokens x 4" in capsys.readouterr().out
+    assert tuple(rec["tokens"].shape) == (4, 4) and rec["tok_s"] > 0
+
+
+def test_lm_launcher_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_launch.main(["--mode", "lm", "--arch", "gemma3-1b"])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "arctic-480b", "stablelm-1.6b", "qwen2.5-3b",
+                                  "gemma3-1b"])
+def test_lm_launcher_serves_on_cpu(arch, capsys):
+    """``--mode lm`` on each LM's smoke config: prefill, then greedy decode
+    steps on the padded cache; the tokens are in the vocabulary and the
+    same on a second run (every draw is seeded)."""
+    from repro_torch import configs as tconfigs
+
+    argv = ["--mode", "lm", "--arch", arch, "--device", "cpu", "--batch", "2",
+            "--prompt-len", "20", "--gen", "6"]
+    rec = serve_launch.main(argv)
+    assert f"{arch} on cpu: prefill 20 + decode 6 tokens x 2" in capsys.readouterr().out
+    toks = rec["tokens"]
+    assert tuple(toks.shape) == (2, 6) and toks.dtype == torch.int32
+    vocab = tconfigs.get(arch).smoke_config().vocab
+    assert bool(((toks >= 0) & (toks < vocab)).all())
+    assert torch.equal(serve_launch.main(argv)["tokens"], toks)
 
 
 def test_new_entry_points_raise_without_a_card(monkeypatch, tmp_path, index):

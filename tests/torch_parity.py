@@ -8,6 +8,8 @@ can be fed the same seeds, and move graphs between the two as numpy.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -331,3 +333,70 @@ def search_both(jidx, tidx, q: np.ndarray, k: int, beam=None, seed: int = 0):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
                                       err_msg=name)
     return got, want
+
+
+# ---------------------------------------------------------------------------
+# the LM family (tests/test_torch_transformer.py, test_torch_decode.py)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("mixtral-8x7b", "arctic-480b", "stablelm-1.6b", "qwen2.5-3b", "gemma3-1b")
+# tight: fp32 compute (``tests/test_models.py::_cfg``'s choice); loose: the
+# smoke configs' own bf16 compute over fp32 parameters
+LM_TIERS = ("float32", "bfloat16")
+RTOL, ATOL = 1e-5, 1e-6
+BF16_ULP = 2.0 ** -7
+# the loose tier's bound, a share of the largest element: on the smoke
+# configs' inputs the logits of forward, prefill and both decode steps, and
+# the decode caches, differ from the reference's by at most 0.68% of their
+# largest (gemma3's dense decode; forward 0.39-0.66%, prefill 0.24-0.35%)
+LM_LOOSE = 2.0 ** -6
+
+
+def lm_configs(arch, tier):
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+
+    jc, tc = jconfigs.get(arch).smoke_config(), tconfigs.get(arch).smoke_config()
+    if tier == "float32":
+        jc = dataclasses.replace(jc, compute_dtype="float32")
+        tc = dataclasses.replace(tc, compute_dtype="float32")
+    return jc, tc
+
+
+@functools.lru_cache(maxsize=None)
+def lm_problem(arch, tier):
+    """(reference config, port config, reference params, port params) of an
+    LM arch's smoke config at a tier, the params from PRNGKey(0) carried
+    across."""
+    from repro.models import transformer as jtfm
+
+    jc, tc = lm_configs(arch, tier)
+    pj = jtfm.init_params(jax.random.PRNGKey(0), jc)
+    pt = convert.lm_params_from_numpy({k: np.asarray(v) for k, v in pj.items()}, tc)
+    return jc, tc, pj, pt
+
+
+def lm_tokens(vocab, shape, seed=1):
+    return np.random.RandomState(seed).randint(0, vocab, shape).astype(np.int32)
+
+
+def lm_close(got, want, tier):
+    """fp32 tier: rtol 1e-5 and 1e-6 of the largest element (an element near
+    zero keeps the absolute rounding of the d products it sums, which
+    scales with the row, not with itself); bf16 tier: ``LM_LOOSE`` of the
+    largest element."""
+    got = got.detach().float().numpy() if torch.is_tensor(got) else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    if tier == "float32":
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL * np.abs(want).max())
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=LM_LOOSE * np.abs(want).max())
+
+
+def bf16_close(got, want):
+    """A bf16 tensor computed in fp32 and rounded once, on both sides: one
+    bf16 rounding (a value on a boundary may round either way) on top of
+    the fp32 bound."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_ULP,
+                               atol=ATOL * np.abs(want).max())
