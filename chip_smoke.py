@@ -6,10 +6,11 @@
 needs one NVIDIA card and runs, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. builds the four hand-written kernel sources from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together: eight kernels, the fp32,
+2. builds the five hand-written kernel sources from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all started together: nine kernels, the fp32,
    bf16 and int8 forms of ``gather_distance`` and ``fused_expand`` and the
-   fp32 and bf16-operand ``pairwise_distance``) and holds each kernel against its plain
+   fp32 and the two bf16-operand forms of ``pairwise_distance``, SIMT and
+   tensor-core) and holds each kernel against its plain
    PyTorch version on the card: at a small shape for each of the five
    metrics and at the main path's shapes, distances to ``rtol=1e-5,
    atol=1e-3`` on Gaussian data and bit for bit on integer-valued data
@@ -41,7 +42,13 @@ needs one NVIDIA card and runs, in order:
    e=64, H=2048 and the seed gather of a shard's search (B=4, C=8 over a
    250,000-row shard).  The bf16-operand ``pairwise_distance`` is held
    against its plain version at the small shapes and at the 4,096² tile
-   (bit for bit on integer rows) and timed there beside the fp32 kernel.
+   (bit for bit on integer rows); where its tensor-core form runs (l2 and
+   ip at d % 8 == 0, its own count moves), also against the fp32 kernel on
+   the widened rows (bit for bit on integer rows, within WGMMA_RTOL of
+   ‖q‖² + ‖x‖² on clustered ones).  It is timed at the 4,096² tile beside
+   its SIMT form on the same rows, the fp32 kernel and ``torch.mm`` on the
+   bf16 rows with fp32 output (the library time), and at the data_bf16
+   build's 1,024² x 32 tile and 256² seed graph.
    (2e) The kernels at d=3, atom positions: the atom graph's build (k=8,
    l2, LGD, W=1024) over 24,576 atoms at integer positions in [0, 64)^3 and
    its exact graph, through the kernels and through the plain versions from
@@ -84,7 +91,8 @@ needs one NVIDIA card and runs, in order:
    card's PQ codes against the CPU's encoder, and the whole search, run
    again on the CPU with the card's codes, graph and entry points.  And the
    build with the rows stored bf16 (``data_bf16``: bf16 tables, bf16-operand
-   tile and seed graph), held to the same recall floor;
+   tile and seed graph), held to the same recall floor, every one of its
+   pairwise launches through the tensor-core form;
 6. serving at full width: phase 4's graph as an ``OnlineIndex`` at capacity
    10^6 behind a ``ServingLoop`` (top_k 10, beam 64, waves of up to 64,
    a 96-query recall reservoir sampling every 5th query), one untimed
@@ -199,15 +207,18 @@ needs one NVIDIA card and runs, in order:
    launches no hand kernel (its counts stay 0);
 12. a ``kernels`` JSON line: each kernel's launches in the build of its own
    precision (phase 4 for fp32, phase 5 for bf16 and int8, the ``data_bf16``
-   build for the bf16-operand pairwise) and, for the three fp32 kernels, in
+   build for the bf16-operand pairwise, whose tensor-core form has a record
+   of its own) and, for the three fp32 kernels, in
    the serving run (``serve_launches``) and in each phase 7 and 8 path
    (``parallel_launches``, ``router_launches``, ``merge_shards_launches``,
    ``mesh_build_launches``, ``mesh_search_launches``,
    ``mesh_parallel_launches``, summed over the ranks) and phase 9b's
    (``retrieval_launches``) and phase 10b's atom path (``atom_launches``),
    its error against the plain version, times and bound (phase 9b's shapes
-   under ``mind_`` keys, phase 2e's d=3 shapes under ``atom_`` and phase
-   10b's exact-graph tile under ``atom_brute_``).
+   under ``mind_`` keys, phase 2e's d=3 shapes under ``atom_``, phase
+   10b's exact-graph tile under ``atom_brute_``, and the bf16-operand
+   tile's other shapes under ``tile1024_`` and ``seed_``, with the SIMT
+   form's time on the same rows as ``simt_ms``).
 
 It exits non-zero, printing no result, when any phase fails, when no CUDA
 device is present, or when it is run without the rest of the repository.
@@ -230,6 +241,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 RTOL, ATOL = 1e-5, 1e-3
+# the bf16-operand pairwise kernel's tensor-core form on real-valued rows:
+# each distance within this share of ‖q‖² + ‖x‖² of the fp32 kernel on the
+# widened rows (exact products, fp32 sums in the tensor cores' order)
+WGMMA_RTOL = 1e-5
 METRICS = ("l2", "ip", "cosine", "l1", "chi2")
 EXACT_METRICS = ("l2", "ip", "l1")  # exact fp32 sums on integer-valued data
 VARIANTS = ("bf16", "int8")  # the compressed tables of gather and expand
@@ -376,6 +391,9 @@ KERNELS = {
     "pairwise_distance.bf16": ("src/repro_torch/csrc/distance_bf16.cu",
                                "src/repro/kernels/distance.py:223 (bf16 operands, widened in-kernel "
                                ":51-52, :81-82, :107-108)"),
+    "pairwise_distance.bf16_wgmma": ("src/repro_torch/csrc/distance_wgmma.cu",
+                                     "src/repro/kernels/distance.py:223 (bf16 operands, l2/ip on the "
+                                     "MXU bodies :41, :70)"),
 }
 
 
@@ -388,6 +406,21 @@ def exact_for(metric, precision):
     if precision == "fp32":
         return metric in EXACT_METRICS
     return metric in ("l2", "ip") or (metric == "l1" and precision == "bf16")
+
+
+def simt_bf16(cuda, q, x, metric, xn):
+    """The SIMT form of the bf16-operand pairwise kernel on rows the
+    wrapper would give the tensor-core form: timed beside it, its launch
+    uncounted."""
+    import torch
+    from repro_torch.kernels import distance
+
+    fn = cuda.function("distance_bf16", "launch_pairwise_distance_bf16", distance._ARGTYPES)
+    out = torch.empty((q.shape[0], x.shape[0]), dtype=torch.float32, device=q.device)
+    cuda.launch("pairwise_distance.bf16", fn, q.device, cuda.ptr(q), cuda.ptr(x), cuda.ptr(xn),
+                cuda.ptr(out), q.shape[0], x.shape[0], q.shape[1],
+                distance.KERNEL_METRIC[metric], count=False)
+    return out
 
 
 class PhaseError(RuntimeError):
@@ -730,11 +763,16 @@ class Smoke:
                                      what=what + (" cached" if xn is not None else ""))
                         # bf16 operands (cosine normalizes in fp32: the fp32 kernel)
                         qb, xb = q.bfloat16(), x[:130].bfloat16()
-                        self.compare("pairwise_distance" if metric == "cosine" else "pairwise_distance.bf16",
-                                     distance.pairwise_distance(qb, xb, metric, x_sq_norms=xn),
-                                     ref.pairwise_distance(qb, xb, metric, x_sq_norms=xn),
-                                     exact=integer and metric in EXACT_METRICS,
-                                     what=what + " bf16 operands" + (" cached" if xn is not None else ""))
+                        bwhat = what + " bf16 operands" + (" cached" if xn is not None else "")
+                        if metric == "cosine":
+                            self.compare("pairwise_distance",
+                                         distance.pairwise_distance(qb, xb, metric, x_sq_norms=xn),
+                                         ref.pairwise_distance(qb, xb, metric, x_sq_norms=xn),
+                                         exact=integer and metric in EXACT_METRICS, what=bwhat)
+                        else:
+                            self.check_bf16_pair(qb, xb, metric, xn,
+                                                 exact=integer and metric in EXACT_METRICS,
+                                                 what=bwhat)
         print(f"phase 2a: small shapes, five metrics, fp32/bf16/int8 tables, fp32 and bf16 "
               f"pairwise operands: kernels agree with plain ({time.perf_counter() - t0:.3f} s)",
               flush=True)
@@ -767,14 +805,20 @@ class Smoke:
                          exact=integer, what=f"intra-wave tile {'int' if integer else 'clustered'}")
             xqb = xq.bfloat16()
             sqb = squared_norms(xqb)
-            got = distance.pairwise_distance(xqb, xqb, "l2", x_sq_norms=sqb)
-            self.compare("pairwise_distance.bf16", got,
-                         ref.pairwise_distance(xqb, xqb, "l2", x_sq_norms=sqb), exact=integer,
-                         what=f"intra-wave tile, bf16 operands {'int' if integer else 'clustered'}")
+            form = self.check_bf16_pair(
+                xqb, xqb, "l2", sqb, exact=integer,
+                what=f"intra-wave tile, bf16 operands {'int' if integer else 'clustered'}")
+            check(form == "wgmma", "the bf16 intra-wave tile did not take the tensor-core form")
             if not integer:
                 self.time_pairwise(xq, xq, sqq, prefix="")
                 self.time_pairwise(xqb, xqb, sqb, prefix="")
                 self.time_pairwise(x[::100][:10_000].contiguous(), x[:8192], sq[:8192])
+                # the data_bf16 build's own bf16 shapes: phase 3's intra-wave
+                # tile (W=1024, d=32) and the knn-lgd build's seed graph
+                # (its 256 first rows, one brute tile)
+                x32 = x[:1024, :32].bfloat16()
+                self.time_pairwise(x32, x32, squared_norms(x32), prefix="tile1024_")
+                self.time_pairwise(xqb[:256], xqb[:256], sqb[:256], prefix="seed_")
         self.xf = xf
         print("phase 2b: main-path shapes: kernels agree with plain", flush=True)
 
@@ -976,16 +1020,24 @@ class Smoke:
               f"({m['bound_by']})", flush=True)
 
     def time_pairwise(self, q, x, xn, *, prefix=None, metric="l2"):
-        """Time the pairwise kernel (its bf16-operand form for bf16 rows),
-        its plain version, ``torch.mm`` and ``torch.cdist`` (on the fp32
-        rows, widened outside the timing) at one shape under ``metric``;
-        with a ``prefix``, into the record's keys under it."""
+        """Time the pairwise kernel (a bf16-operand form for bf16 rows), its
+        plain version, the library's product and ``torch.cdist`` at one
+        shape under ``metric``; with a ``prefix``, into the record's keys
+        under it.  The library time is ``torch.mm`` in IEEE fp32 for fp32
+        rows, and for bf16 rows ``torch.mm`` with fp32 output on the bf16
+        rows (the same function: exact products, fp32 sums), the fp32
+        ``torch.mm`` on the widened rows beside it (``widened_mm_ms``).
+        Where the tensor-core form runs, its record takes the same times and
+        the SIMT form's time on the same rows (``simt_ms``, a launch that
+        does not count)."""
         torch = self.torch
         from repro_torch.kernels import distance, ref
 
         m, d = q.shape
         n = x.shape[0]
-        name = "pairwise_distance.bf16" if q.dtype == torch.bfloat16 else "pairwise_distance"
+        bf16 = q.dtype == torch.bfloat16
+        name = "pairwise_distance.bf16" if bf16 else "pairwise_distance"
+        wgmma = bf16 and distance.bf16_form(metric, d, True) == "wgmma"
         ms = self.profile.time_ms([lambda: distance.pairwise_distance(q, x, metric, x_sq_norms=xn)] * 12)
         plain_ms = self.profile.time_ms([lambda: ref.pairwise_distance(q, x, metric, x_sq_norms=xn)] * 12)
         # the product alone in IEEE fp32 (TF32 is off), and the library's
@@ -993,19 +1045,60 @@ class Smoke:
         qf, xf = q.float(), x.float()
         mm_ms = self.profile.time_ms([lambda: torch.mm(qf, xf.T)] * 12)
         cdist_ms = self.profile.time_ms([lambda: torch.cdist(qf, xf)] * 12)
+        extra = {}
+        if bf16:
+            extra["widened_mm_ms"] = mm_ms
+            mm_ms = self.profile.time_ms([lambda: torch.mm(q, x.T, out_dtype=torch.float32)] * 12)
+        if wgmma:
+            extra["simt_ms"] = self.profile.time_ms([lambda: simt_bf16(self._cuda, q, x, metric, xn)] * 12)
         # each input read once in its storage type (the x norms only where
         # cached), the output written once
         nbytes = q.element_size() * (m * d + n * d) + 4 * ((0 if xn is None else n) + m * n)
-        b, how = self.profile.bound_ms(nbytes, 2 * m * n * d,
-                                       "bf16" if name.endswith(".bf16") else "fp32")
-        print(f"{name} m={m} n={n} d={d} {metric}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"torch.mm {mm_ms:.6f} ms, torch.cdist {cdist_ms:.6f} ms, bound {b:.6f} ms ({how})",
-              flush=True)
+        b, how = self.profile.bound_ms(nbytes, 2 * m * n * d, "bf16" if bf16 else "fp32")
+        print(f"{name}{'_wgmma' if wgmma else ''} m={m} n={n} d={d} {metric}: kernel {ms:.6f} ms, "
+              f"plain {plain_ms:.6f} ms, torch.mm {mm_ms:.6f} ms"
+              + "".join(f", {k} {v:.6f}" for k, v in extra.items())
+              + f", torch.cdist {cdist_ms:.6f} ms, bound {b:.6f} ms ({how})", flush=True)
         if prefix is not None:
             shape = f"m={m} n={n} d={d} {'cached' if xn is not None else 'uncached'} {metric}"
             rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=how, library_ms=mm_ms,
-                       cdist_ms=cdist_ms, shape=shape)
-            self.rec[name].update({prefix + k: v for k, v in rec.items()})
+                       cdist_ms=cdist_ms, shape=shape, **extra)
+            for key in (name, "pairwise_distance.bf16_wgmma") if wgmma else (name,):
+                self.rec[key].update({prefix + k: v for k, v in rec.items()})
+
+    def check_bf16_pair(self, q, x, metric, xn, *, exact, what):
+        """The bf16-operand pairwise kernel against its plain version
+        (``compare``); where the wrapper's form is the tensor-core one, its
+        own count must move and it is also held against the fp32 kernel on
+        the widened rows: equal on integer rows, else within WGMMA_RTOL of
+        ‖q‖² + ‖x‖².  Returns the form."""
+        torch = self.torch
+        from repro_torch.kernels import distance, ref
+
+        name = "pairwise_distance.bf16_wgmma"
+        aligned = q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+        form = distance.bf16_form(metric, q.shape[1], aligned)
+        before = self.ops.launch_counts()[name]
+        got = distance.pairwise_distance(q, x, metric, x_sq_norms=xn)
+        ran = self.ops.launch_counts()[name] - before
+        check(ran == (form == "wgmma"), f"pairwise_distance.bf16 {what}: form {form}, {ran} "
+              f"launches of the tensor-core form")
+        want = ref.pairwise_distance(q, x, metric, x_sq_norms=xn)
+        self.compare("pairwise_distance.bf16", got, want, exact=exact, what=what)
+        if form == "wgmma":
+            widened = distance.pairwise_distance(q.float(), x.float(), metric, x_sq_norms=xn)
+            if exact:
+                check(torch.equal(got, widened),
+                      f"{name} {what}: not bit-identical to the fp32 kernel on the widened rows")
+            else:
+                scale = (q.float() ** 2).sum(-1)[:, None] + (x.float() ** 2).sum(-1)[None, :]
+                rel = float(((got - widened).abs() / scale.clamp_min(1e-30)).max())
+                check(rel <= WGMMA_RTOL, f"{name} {what}: {rel:.3e} of |q|^2 + |x|^2 from the fp32 "
+                      f"kernel on the widened rows, beyond {WGMMA_RTOL:.0e}")
+                self.rec[name]["max_abs_err"] = max(self.rec[name]["max_abs_err"],
+                                                    float((got - want).abs().max()))
+                self.rec[name]["max_rel_fp32"] = max(self.rec[name].get("max_rel_fp32", 0.0), rel)
+        return form
 
     def plain_expand(self, q, x, *lanes, **kw):
         """``expand.expand_reference(q, x, cands, beam..., hash...)`` in
@@ -1273,7 +1366,8 @@ class Smoke:
         builds += [("intra_wave=False", dataclasses.replace(base, wave=64, intra_wave=False),
                     FP32_KERNELS, x[:INTRA_OFF_ROWS]),
                    ("data_bf16", dataclasses.replace(base, data_bf16=True),
-                    ("gather_distance.bf16", "fused_expand.bf16", "pairwise_distance.bf16"), x)]
+                    ("gather_distance.bf16", "fused_expand.bf16", "pairwise_distance.bf16",
+                     "pairwise_distance.bf16_wgmma"), x)]
         for what, cfg, kernels, rows in builds:
 
             def seed_fn(wave, pos, W, n_valid):
@@ -1561,16 +1655,21 @@ class Smoke:
         """The knn-lgd build over phase 4's rows stored bf16 (``data_bf16``,
         the reference's ``launch/perf.py`` bf16-data variant): every
         distance widens bf16 rows and accumulates in fp32, through the bf16
-        table kernels and the bf16-operand pairwise kernel."""
+        table kernels and the bf16-operand pairwise kernel, whose every
+        launch (the 4,096² tiles and the seed graph) takes the tensor-core
+        form."""
         torch = self.torch
         from repro_torch.configs import knn_lgd
         from repro_torch.core import brute, construct
 
         n = self.xf.shape[0]
         cfg = dataclasses.replace(knn_lgd.full_config(), data_bf16=True)
+        pair = ("pairwise_distance.bf16", "pairwise_distance.bf16_wgmma")
         g, stats, t_build, peak = self.counted_build(
-            cfg, ("gather_distance.bf16", "fused_expand.bf16", "pairwise_distance.bf16"),
-            record=("pairwise_distance.bf16",))
+            cfg, ("gather_distance.bf16", "fused_expand.bf16") + pair, record=pair)
+        check(self.launches[pair[1]] == self.launches[pair[0]],
+              f"data_bf16 build: {self.launches[pair[0]]} bf16-operand pairwise launches, "
+              f"{self.launches[pair[1]]} through the tensor-core form")
         recall = brute.recall_at_k(g.nbr_ids[self.rows], self.truth, 10)
         same = float((g.nbr_ids == self.g32.nbr_ids).float().mean())
         print(f"phase 5: knn-lgd build n={n} d=128 W={cfg.wave}, rows stored bf16 (data_bf16): "
@@ -3503,9 +3602,10 @@ class Smoke:
             # the gathers: the empty launch and index_select at the main
             # shape, and the large-C shape
             rec.update({k: v for k, v in r.items()
-                        if k in ("warm_ms", "floor_ms", "index_select_ms")
+                        if k in ("warm_ms", "floor_ms", "index_select_ms", "simt_ms",
+                                 "widened_mm_ms", "max_rel_fp32")
                         or k.startswith(("large_c_", "serve_", "merge_", "router_", "mind_",
-                                         "atom_"))})
+                                         "atom_", "tile1024_", "seed_"))})
             if name in self.serve_launches:
                 rec["serve_launches"] = self.serve_launches[name]
             for path, counts in self.path_launches.items():

@@ -1,7 +1,8 @@
 // pairwise_distance: (m, d) x (n, d) -> (m, n) float32, operands float32
 // or (both) bfloat16.  The kernel template, included by distance.cu (the
 // fp32 entry) and distance_bf16.cu (the bf16 entry), so the two compile
-// apart, in parallel.
+// apart, in parallel.  Two bf16 operands under l2 or ip at d % 8 == 0 take
+// the tensor-core form instead (distance_wgmma.cu).
 //
 // Replaces the TPU kernel repro/kernels/distance.py pairwise_distance (:147,
 // pallas_call at :223) with its bodies _dist_kernel_mxu (:41),
@@ -28,20 +29,25 @@
 // 0.f (the l1/chi2 terms likewise, one add per k), and each norm is the
 // fmaf chain of its row; the l2 epilogue rounds with _rn intrinsics.  Slices
 // past d are zeros, and fmaf(0, 0, acc) leaves a chain that started at +0
-// unchanged, so no tiling changes a bit.  Keep that rule in any redesign.
+// unchanged, so no tiling changes a bit.  Keep that rule in any redesign of
+// the fp32 kernel: the fp32 main path's graphs depend on those bits.  The
+// one departure is the tensor-core form for two bf16 operands
+// (distance_wgmma.cu): it keeps the norm chains and the epilogue, but the
+// tensor cores sum q·x in their own order.  Every bf16 x bf16 product is
+// exact in fp32, so it equals this kernel bit for bit on integer-valued rows
+// (sums below 2^24) and stays within 1e-5 · (‖q‖² + ‖x‖²) of it on real
+// ones; in exchange the products run at the tensor cores' rate instead of
+// the FFMA loop's, and the function becomes bound by its output bytes.
 //
 // bf16 operands (a data_bf16 build's seed graph, intra-wave tile and brute
 // force; the reference's Pallas body upcasts whatever it is given,
-// distance.py:51-52, :81-82, :107-108): the same kernel instantiated on the
-// operand type.  Only the loads differ: four bf16 values (8 bytes) per load,
-// widened to fp32 in registers, which is exact, so every chain, norm and
-// epilogue is the fp32 kernel's and the output equals the fp32 kernel's on
-// the widened rows bit for bit.  Half the operand bytes.  An H100 multiplies
-// bf16 x bf16 with fp32 sums on its tensor cores at 989 TFLOP/s (data
-// sheet), each product exact in fp32, so this function's bound is its
-// bytes (21 us at the 4096² tile); the kernel keeps the fp32 FFMA loop and
-// runs at the fp32 kernel's speed, 6x that bound (H100 80GB HBM3 at 700 W,
-// PERF.md).
+// distance.py:51-52, :81-82, :107-108) that the tensor-core form does not
+// take (l1, chi2, d % 8 != 0, unaligned rows): the same kernel instantiated
+// on the operand type.  Only the loads differ: four bf16 values (8 bytes)
+// per load, widened to fp32 in registers, which is exact, so every chain,
+// norm and epilogue is the fp32 kernel's and the output equals the fp32
+// kernel's on the widened rows bit for bit.  Half the operand bytes; it
+// runs at the fp32 kernel's speed (H100 80GB HBM3 at 700 W, PERF.md).
 //
 // Design: a register-blocked SIMT GEMM.  Two persistent CTAs of 256
 // threads per SM walk the 128x128 output tiles; a tile walks d in 16-wide

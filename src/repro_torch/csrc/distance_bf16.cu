@@ -1,7 +1,8 @@
 // pairwise_distance with bfloat16 operands (a data_bf16 build's seed graph,
-// intra-wave tile and brute force): the C entry of the kernel in
-// distance.cuh instantiated on __nv_bfloat16, built as its own library so
-// that nvcc compiles it beside the fp32 entry.
+// intra-wave tile and brute force) where the tensor-core form
+// (distance_wgmma.cu) does not apply: l1, chi2, d % 8 != 0, unaligned rows.
+// The C entry of the kernel in distance.cuh instantiated on __nv_bfloat16,
+// built as its own library so that nvcc compiles it beside the fp32 entry.
 
 #include "distance.cuh"
 

@@ -32,19 +32,21 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/kernels — src/repro_torch/kernels/_cuda.py is 4 levels down
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gather_dist", "expand", "distance", "distance_bf16")
+SOURCES = ("gather_dist", "expand", "distance", "distance_bf16", "distance_wgmma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
 # Kernel launches on the card, by kernel name; a bf16 or int8 variant counts
-# under its own name.  Each wrapper adds one where it launches its kernel and
-# nowhere else; the plain versions never count.
+# under its own name, and the tensor-core form of the bf16-operand pairwise
+# kernel under ``pairwise_distance.bf16_wgmma`` besides.  Each wrapper adds
+# one where it launches its kernel and nowhere else; the plain versions
+# never count.
 LAUNCHES = {
     "gather_distance": 0, "gather_distance.bf16": 0, "gather_distance.int8": 0,
     "fused_expand": 0, "fused_expand.bf16": 0, "fused_expand.int8": 0,
-    "pairwise_distance": 0, "pairwise_distance.bf16": 0,
+    "pairwise_distance": 0, "pairwise_distance.bf16": 0, "pairwise_distance.bf16_wgmma": 0,
 }
 
 # candidate-table storage type -> (the kernels' DType code in
@@ -126,17 +128,21 @@ def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return _loaded[key]
 
 
-def launch(kernel: str, fn: ctypes._CFuncPtr, device: torch.device, *args,
+def launch(kernel, fn: ctypes._CFuncPtr, device: torch.device, *args,
            count: bool = True) -> None:
     """Call a C launcher on ``device``'s current stream; raise on a CUDA
-    error.  ``count=False`` for a launch that is not the kernel's own (an
-    empty kernel timed at its grid)."""
+    error.  ``kernel`` is the launch count's name, or a tuple of names that
+    each count it (a form that also counts under its own name).
+    ``count=False`` for a launch that is not the kernel's own (an empty
+    kernel timed at its grid)."""
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+        raise RuntimeError(f"{names[-1]}: CUDA error {err} at launch")
     if count:
-        LAUNCHES[kernel] += 1
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def require_cuda(kernel: str, *tensors: Optional[torch.Tensor]) -> None:

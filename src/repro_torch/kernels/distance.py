@@ -1,6 +1,7 @@
-"""Tiled pairwise distances: the wrapper of ``csrc/distance.cu`` (and
-``distance_bf16.cu``, both entries of the kernel in ``distance.cuh``) and its
-plain version (counterpart of ``repro.kernels.distance``).
+"""Tiled pairwise distances: the wrappers of ``csrc/distance.cu`` (and
+``distance_bf16.cu``, both entries of the kernel in ``distance.cuh``) and of
+``csrc/distance_wgmma.cu``, and their plain version (counterpart of
+``repro.kernels.distance``).
 
 ``pairwise_distance(q, x)`` gives the (m, n) float32 distances between two
 row sets: the exact seed graph, the intra-wave W x W tile and the
@@ -10,10 +11,13 @@ in full IEEE fp32 with a norm epilogue (``x_sq_norms``, the graph-resident
 ``‖x‖²`` cache, replaces the x-side norm reduction for l2); l1/chi2 run in
 the same tiling.  Cosine normalizes both sides here and
 takes ``1 − dot`` in the kernel.  Two bfloat16 operands (a ``data_bf16``
-build) run the kernel's bf16-operand instantiation, which widens its loads
-in registers and is otherwise the fp32 kernel; other mixes are widened to
-fp32 here.  Its plain version is ``kernels.ref.pairwise_distance``, which
-widens every operand.
+build) take one of two forms, chosen by ``bf16_form``: l2 and ip at
+``d % 8 == 0`` on 16-byte aligned rows run the tensor-core kernel
+(``wgmma``, fp32 sums in the tensor cores' order; norms and epilogue as the
+SIMT kernel's), everything else the SIMT kernel's bf16-operand
+instantiation, which widens its loads in registers and is otherwise the
+fp32 kernel.  Other mixes are widened to fp32 here.  Its plain version is
+``kernels.ref.pairwise_distance``, which widens every operand.
 """
 
 from __future__ import annotations
@@ -29,8 +33,21 @@ from repro_torch.kernels import _cuda
 # metric name -> the kernel's PairMetric enum (csrc/distance.cu)
 KERNEL_METRIC = {"l2": 0, "ip": 1, "cosine": 2, "l1": 3, "chi2": 4}
 
+# bf16 operands: the metrics that are a product, which the tensor-core
+# form takes
+WGMMA_METRICS = ("l2", "ip")
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+
+
+def bf16_form(metric: str, d: int, aligned: bool) -> str:
+    """The kernel two bfloat16 operands take: ``"wgmma"`` (the tensor-core
+    form, ``csrc/distance_wgmma.cu``) for l2 and ip at ``d % 8 == 0`` with
+    both operands 16-byte aligned (TMA addresses whole 16-byte rows), else
+    ``"simt"`` (``csrc/distance_bf16.cu``).  Cosine never asks: it
+    normalizes in fp32 and takes the fp32 kernel."""
+    return "wgmma" if metric in WGMMA_METRICS and d % 8 == 0 and aligned else "simt"
 
 
 def pairwise_distance(
@@ -40,14 +57,20 @@ def pairwise_distance(
     *,
     x_sq_norms: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel: (m, d) x (n, d) -> (m, n) float32, both
-    operands bfloat16 (counted as ``pairwise_distance.bf16``) or else
-    widened to float32.  CUDA tensors only."""
+    """Launch a CUDA kernel: (m, d) x (n, d) -> (m, n) float32, both
+    operands bfloat16 (counted as ``pairwise_distance.bf16``, and the
+    tensor-core form also as ``pairwise_distance.bf16_wgmma``) or else
+    widened to float32.  CUDA tensors only; a form that fails to build or
+    launch raises, and nothing falls back to another."""
     if metric not in KERNEL_METRIC:
         raise KeyError(f"unknown metric {metric!r}; have {sorted(KERNEL_METRIC)}")
     if metric == "cosine":
         q, x = metrics.normalize_rows(q), metrics.normalize_rows(x)
     if q.dtype == x.dtype == torch.bfloat16:
+        q, x = q.contiguous(), x.contiguous()
+        aligned = q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+        if bf16_form(metric, q.shape[1], aligned) == "wgmma":
+            return _pairwise_wgmma(q, x, metric, x_sq_norms)
         name, lib, symbol = "pairwise_distance.bf16", "distance_bf16", "launch_pairwise_distance_bf16"
     else:
         name, lib, symbol = "pairwise_distance", "distance", "launch_pairwise_distance"
@@ -67,5 +90,22 @@ def pairwise_distance(
         name, fn, x.device,
         _cuda.ptr(q), _cuda.ptr(x), None if xn is None else _cuda.ptr(xn),
         _cuda.ptr(out), m, n, d, KERNEL_METRIC[metric],
+    )
+    return out
+
+
+def _pairwise_wgmma(q, x, metric, x_sq_norms):
+    """The tensor-core form on contiguous, aligned bf16 rows."""
+    m, d = q.shape
+    n = x.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    xn = None
+    if metric == "l2" and x_sq_norms is not None:
+        xn = x_sq_norms.float().contiguous()
+    _cuda.require_cuda("pairwise_distance", q, x, out, xn)
+    fn = _cuda.function("distance_wgmma", "launch_pairwise_distance_wgmma", _ARGTYPES)
+    _cuda.launch(
+        ("pairwise_distance.bf16", "pairwise_distance.bf16_wgmma"), fn, x.device,
+        _cuda.ptr(q), _cuda.ptr(x), _cuda.ptr(xn), _cuda.ptr(out), m, n, d, KERNEL_METRIC[metric],
     )
     return out

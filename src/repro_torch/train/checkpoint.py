@@ -61,12 +61,23 @@ def load_manifest(path: str) -> dict:
         return json.load(f)
 
 
+def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A leaf's array as a tensor, bit for bit.  The reference writes a
+    bfloat16 leaf (``ml_dtypes.bfloat16``) as 2-byte void under the
+    manifest dtype ``"bfloat16"``; its bits are carried through int16 and
+    viewed as ``torch.bfloat16``, as ``convert._from_numpy`` does."""
+    if dtype == "bfloat16" and arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
 def restore(path: str, like: dict, *, strict_shapes: bool = True, device=None) -> tuple[dict, int]:
     """Read the leaves named by ``like`` (name -> tensor or int) onto
     ``device`` (None: the card, raising without one), each in its ``like``
-    leaf's dtype; an int leaf comes back as an int.  Raises ``KeyError`` for a leaf the checkpoint lacks and, with
-    ``strict_shapes``, ``ValueError`` for a shape that differs.  Returns
-    (tree, step)."""
+    leaf's dtype; an int leaf comes back as an int.  A bfloat16 leaf of the
+    reference's restores bit for bit (``_tensor``).  Raises ``KeyError`` for
+    a leaf the checkpoint lacks and, with ``strict_shapes``, ``ValueError``
+    for a shape that differs.  Returns (tree, step)."""
     dev = device_lib.resolve(device)
     manifest = load_manifest(path)
     by_name = {r["name"]: r for r in manifest["leaves"]}
@@ -79,7 +90,7 @@ def restore(path: str, like: dict, *, strict_shapes: bool = True, device=None) -
         want = () if is_int else tuple(leaf.shape)
         if strict_shapes and tuple(arr.shape) != want:
             raise ValueError(f"leaf {name!r}: checkpoint shape {arr.shape} != target {want}")
-        out[name] = int(arr) if is_int else torch.from_numpy(np.array(arr)).to(dev, leaf.dtype)
+        out[name] = int(arr) if is_int else _tensor(arr, by_name[name]["dtype"]).to(dev, leaf.dtype)
     return out, int(manifest["step"])
 
 

@@ -77,6 +77,26 @@ def test_restore_refuses_a_mismatched_shape(built, tmp_path):
 
 
 
+@pytest.mark.parametrize("like_dtype", [torch.bfloat16, torch.float32])
+def test_reference_bf16_leaf_restores_bit_for_bit(tmp_path, like_dtype):
+    """A bfloat16 leaf of the reference's ``save`` (2-byte void on disk)
+    restores in the port bit for bit, as bf16 or widened to fp32 (exact);
+    the port's own checkpoint of a bf16 tensor (widened to fp32 on disk)
+    restores as before."""
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((5, 7)).astype(np.float32)
+    want = torch.from_numpy(w).bfloat16()
+    like = {"w": torch.zeros((5, 7), dtype=like_dtype)}
+    ref_path, port_path = str(tmp_path / "ref"), str(tmp_path / "port")
+    jckpt.save(ref_path, {"w": jnp.asarray(w).astype(jnp.bfloat16)}, step=3)
+    tckpt.save(port_path, {"w": want}, step=4)
+    for path, step in ((ref_path, 3), (port_path, 4)):
+        got, got_step = tckpt.restore(path, like, device="cpu")
+        assert got_step == step and got["w"].dtype == like_dtype
+        # widening bf16 to fp32 is exact, so equal fp32 bits are equal bf16 bits
+        assert torch.equal(got["w"].float().view(torch.int32), want.float().view(torch.int32))
+
+
 def test_restore_runs_on_the_card_unless_told(built, tmp_path):
     """Without ``device=`` a restore lands on the card, as every entry point
     does; without a card it raises instead of carrying on on the CPU."""

@@ -178,25 +178,107 @@ def test_pairwise_kernel_shapes(card, metric, m, n, d, integer):
 @pytest.mark.parametrize("m,n,d", PAIRWISE_SHAPES)
 @pytest.mark.parametrize("integer", [True, False])
 def test_pairwise_kernel_bf16_operands(card, metric, m, n, d, integer):
-    """The bf16-operand instantiation equals the fp32 kernel on the widened
-    rows bit for bit (widening is exact), and the plain version as the fp32
-    kernel does; cosine normalizes in fp32 and takes the fp32 kernel."""
+    """Two bf16 operands: the SIMT form (l1, chi2, d % 8 != 0) equals the
+    fp32 kernel on the widened rows bit for bit (widening is exact), as
+    does the tensor-core form (l2, ip at d % 8 == 0) on integer rows; on
+    real rows the tensor-core form sums q·x in its own order, within
+    WGMMA_RTOL · (‖q‖² + ‖x‖²) of the fp32 kernel.  Both agree with the
+    plain version as the fp32 kernel does; cosine normalizes in fp32 and
+    takes the fp32 kernel."""
     cached = metric == "l2-cached"
     metric = metric.removesuffix("-cached")
     q = _data((m, d), 11, metric, integer, card).to(torch.bfloat16)
     x = _data((n, d), 12, metric, integer, card).to(torch.bfloat16)
     xn = (x.float() * x.float()).sum(-1) if cached else None
+    wgmma = metric != "cosine" and distance.bf16_form(metric, d, True) == "wgmma"
     before = ops.launch_counts()
     got = distance.pairwise_distance(q, x, metric, x_sq_norms=xn)
     after = ops.launch_counts()
     bf16_launches = after["pairwise_distance.bf16"] - before["pairwise_distance.bf16"]
     assert bf16_launches == (0 if metric == "cosine" else 1)
-    assert torch.equal(got, distance.pairwise_distance(q.float(), x.float(), metric, x_sq_norms=xn))
+    wgmma_launches = (after["pairwise_distance.bf16_wgmma"]
+                      - before["pairwise_distance.bf16_wgmma"])
+    assert wgmma_launches == int(wgmma)
+    widened = distance.pairwise_distance(q.float(), x.float(), metric, x_sq_norms=xn)
+    if wgmma and not integer:
+        _assert_within_norms(got, widened, q, x)
+    else:
+        assert torch.equal(got, widened)
     want = ref.pairwise_distance(q, x, metric, x_sq_norms=xn)
     if integer and metric in EXACT:
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+# the tensor-core form on real-valued rows: each distance within this share
+# of ‖q‖² + ‖x‖² of the fp32 kernel on the widened rows (the products are
+# exact in fp32; only the order and rounding of their sums differ, a few
+# fp32 ulps of the terms over d <= 512, against 1e-5 here)
+WGMMA_RTOL = 1e-5
+WGMMA_SIZES = [1, 63, 65, 129, 4096, 10000]
+WGMMA_D = [8, 16, 24, 64, 128, 136, 256, 512]
+
+
+def _assert_within_norms(got, want, q, x):
+    scale = (q.float() ** 2).sum(-1)[:, None] + (x.float() ** 2).sum(-1)[None, :]
+    worst = float(((got - want).abs() / scale.clamp_min(1e-30)).max()) if got.numel() else 0.0
+    assert worst <= WGMMA_RTOL, worst
+
+
+def _bf16_rows(shape, seed, integer, dev):
+    """bf16 rows: integers in [-15, 15] (every partial sum of a distance is
+    then an integer below 2^24 at d <= 512, so no order of the sums moves a
+    bit) or N(0, 1) rounded to bf16."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(-15, 16, shape) if integer else rng.randn(*shape)
+    return torch.from_numpy(a.astype(np.float32)).to(dev).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("metric", ["l2-cached", "l2", "ip"])
+@pytest.mark.parametrize("m", WGMMA_SIZES)
+@pytest.mark.parametrize("d", WGMMA_D)
+def test_pairwise_wgmma_form(card, metric, m, d):
+    """The tensor-core form at ragged and full tiles, every depth a stage
+    ends in zeros or not, n from one column to 10,000: integer rows equal
+    the plain version and the fp32 kernel on the widened rows bit for bit;
+    real rows stay within WGMMA_RTOL of the fp32 kernel.  Each call counts
+    one launch of the tensor-core form."""
+    cached = metric == "l2-cached"
+    metric = metric.removesuffix("-cached")
+    for n in WGMMA_SIZES:
+        for integer in (True, False):
+            q = _bf16_rows((m, d), 61, integer, card)
+            x = _bf16_rows((n, d), 62, integer, card)
+            xn = (x.float() ** 2).sum(-1) if cached else None
+            before = ops.launch_counts()["pairwise_distance.bf16_wgmma"]
+            got = distance.pairwise_distance(q, x, metric, x_sq_norms=xn)
+            assert ops.launch_counts()["pairwise_distance.bf16_wgmma"] == before + 1
+            widened = distance.pairwise_distance(q.float(), x.float(), metric, x_sq_norms=xn)
+            what = f"n={n} {'int' if integer else 'gauss'}"
+            if integer:
+                assert torch.equal(got, widened), what
+                assert torch.equal(got, ref.pairwise_distance(q, x, metric, x_sq_norms=xn)), what
+            else:
+                _assert_within_norms(got, widened, q, x)
+
+
+@pytest.mark.parametrize("n", [32768, 32767])
+def test_pairwise_wgmma_outputs_past_2_31(card, n):
+    """m·n past 2^31 outputs (64-bit offsets), with 16-byte output rows
+    (TMA stores) and without (8-byte stores): rows at the start, the middle
+    and the end equal the plain version bit for bit on integer rows."""
+    m, d = 66_000, 8
+    assert m * n > 2 ** 31
+    q, x = _bf16_rows((m, d), 63, True, card), _bf16_rows((n, d), 64, True, card)
+    for metric in ("l2", "ip"):
+        before = ops.launch_counts()["pairwise_distance.bf16_wgmma"]
+        got = distance.pairwise_distance(q, x, metric)
+        assert ops.launch_counts()["pairwise_distance.bf16_wgmma"] == before + 1
+        for lo in (0, m // 2, m - 64):
+            want = ref.pairwise_distance(q[lo:lo + 64], x, metric)
+            assert torch.equal(got[lo:lo + 64], want), (metric, lo)
+        del got
 
 
 def test_bf16_data_build_kernels_match_plain(card, monkeypatch):

@@ -71,6 +71,30 @@ def test_pairwise_plain_matches_pallas(metric, integer):
     _check(got, want, integer and metric in EXACT, metric)
 
 
+@pytest.mark.parametrize("metric, d, aligned, form", [
+    ("l2", 128, True, "wgmma"), ("ip", 8, True, "wgmma"), ("l2", 136, True, "wgmma"),
+    ("ip", 512, True, "wgmma"), ("l2", 100, True, "simt"), ("ip", 36, True, "simt"),
+    ("l2", 128, False, "simt"), ("l1", 128, True, "simt"), ("chi2", 64, True, "simt"),
+])
+def test_bf16_pairwise_form_choice(metric, d, aligned, form):
+    """Two bf16 operands take the tensor-core form for the product metrics
+    at 16-byte rows on aligned pointers, and the SIMT form otherwise."""
+    assert tdistance.bf16_form(metric, d, aligned) == form
+
+
+@pytest.mark.parametrize("d", [128, 100])
+def test_bf16_pairwise_wrapper_refuses_cpu_tensors(d):
+    """Either bf16 form refuses CPU tensors (they take the plain version
+    through ``ops``) and counts no launch."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    x = torch.rand(50, d).bfloat16()
+    with pytest.raises(ValueError, match="CUDA"):
+        tdistance.pairwise_distance(x[:4], x, "l2", x_sq_norms=torch.ones(50))
+    assert not any(ops.launch_counts().values())
+
+
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("integer", [False, True])
 def test_gather_plain_matches_pallas(metric, integer):
