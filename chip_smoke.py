@@ -205,15 +205,37 @@ needs one NVIDIA card and runs, in order:
    train --arch gemma3-1b`` at the smoke and the full config, and
    ``examples/train_lm_torch.py --tiny``, whose loss must fall.  The LM path
    launches no hand kernel (its counts stay 0);
-12. a ``kernels`` JSON line: each kernel's launches in the build of its own
+12. the paper's three core examples in-process on the card at the
+   reference's sizes, their own asserts the gate:
+   ``examples/quickstart_torch.py`` (5,000 clustered rows, d=32, k=10, an
+   LGD build with the coarse level, coarse- and random-seeded search
+   against brute force, 500 rows inserted and 100 removed),
+   ``examples/lifecycle_torch.py`` (4,000 rows, d=16, k=16: build, a
+   snapshot restored to a bit-identical replica, churn at fixed capacity,
+   coalesced ingest, compact) and ``examples/parallel_build_torch.py``
+   (6,000 rows, d=16, k=16, 4 shards: sequential and parallel builds, the
+   spelled-out merge and refine, a router collapsed by ``merge_shards``).
+   Each example's launch counts are zeroed just before it and each of the
+   three fp32 kernels must have launched in it; no plain version of a
+   kernel may run on a CUDA tensor meanwhile; each kernel is held against
+   its plain version, within the real-valued tolerance, on arguments
+   captured from each example (its seed gather, an expansion and the
+   intra-wave tile at d = 16 and 32; the parallel build's first merge's
+   cross-search expansion and second-hop gather too); and a metric
+   registered for the phase must be refused by ``ops.pairwise_distance``,
+   ``ops.gather_distance`` and ``ops.expand_step`` on CUDA tensors before
+   any launch;
+13. a ``kernels`` JSON line: each kernel's launches in the build of its own
    precision (phase 4 for fp32, phase 5 for bf16 and int8, the ``data_bf16``
    build for the bf16-operand pairwise, whose tensor-core form has a record
    of its own) and, for the three fp32 kernels, in
    the serving run (``serve_launches``) and in each phase 7 and 8 path
    (``parallel_launches``, ``router_launches``, ``merge_shards_launches``,
    ``mesh_build_launches``, ``mesh_search_launches``,
-   ``mesh_parallel_launches``, summed over the ranks) and phase 9b's
-   (``retrieval_launches``) and phase 10b's atom path (``atom_launches``),
+   ``mesh_parallel_launches``, summed over the ranks), phase 9b's
+   (``retrieval_launches``), phase 10b's atom path (``atom_launches``) and
+   each phase 12 example (``example_quickstart_launches``,
+   ``example_lifecycle_launches``, ``example_parallel_build_launches``),
    its error against the plain version, times and bound (phase 9b's shapes
    under ``mind_`` keys, phase 2e's d=3 shapes under ``atom_``, phase
    10b's exact-graph tile under ``atom_brute_``, and the bf16-operand
@@ -376,6 +398,11 @@ LM_OTHER_STEPS, LM_EXAMPLE_STEPS = 16, 40
 # card against float64 (fp32 sums in another order), bf16 against fp32
 LM_SPLIT_TOL, LM_FWD_TOL, LM_F64_TOL, LM_BF16_TOL = 2.0 ** -5, 2.0 ** -5, 1e-4, 2.0 ** -3
 LM_HBM_BYTES_S = 3.35e12  # the H100 SXM's published memory rate
+# phase 12: each core example's wave (the rows of its seed gathers,
+# expansions and intra-wave tiles), and the merge searches' chunk of lanes
+# (``construct.build_parallel``'s ``search_chunk``)
+EXAMPLE_WAVES = {"quickstart": 256, "lifecycle": 512, "parallel_build": 256}
+MERGE_SEARCH_CHUNK = 512
 
 # the kernels, the CUDA sources that replace the TPU kernels, and the
 # pallas_call sites with the storage type each form takes
@@ -462,7 +489,7 @@ def main() -> int:
                       smoke.phase_build_parity, smoke.phase_full, smoke.phase_compressed,
                       smoke.phase_serving, smoke.phase_parallel, smoke.phase_router,
                       smoke.phase_merge_shards, smoke.phase_mesh, smoke.phase_recsys,
-                      smoke.phase_train, smoke.phase_lm):
+                      smoke.phase_train, smoke.phase_lm, smoke.phase_examples):
             phase()
             print(f"  [{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except PhaseError as exc:
@@ -708,6 +735,7 @@ class Smoke:
             ok = torch.allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
             check(ok, f"{kernel} {what}: max abs err {err} beyond rtol={RTOL} atol={ATOL}")
             self.rec[kernel]["max_abs_err"] = max(self.rec[kernel]["max_abs_err"], err)
+        return err
 
     def data(self, n, d, seed, *, integer=False, metric="l2"):
         torch = self.torch
@@ -1175,11 +1203,12 @@ class Smoke:
         elsewhere, the beam's ids and flags where ``beam_ids``."""
         for i, field in ((3, "vis_ids"), (5, "comps")):
             self.compare(name, got[i], want[i], exact=True, what=f"{what} {field}")
-        for i, field in ((1, "beam_dist"), (4, "vis_dist")):
-            self.compare(name, got[i], want[i], exact=exact, what=f"{what} {field}")
+        err = max(self.compare(name, got[i], want[i], exact=exact, what=f"{what} {field}")
+                  for i, field in ((1, "beam_dist"), (4, "vis_dist")))
         if beam_ids:
             for i, field in ((0, "beam_ids"), (2, "beam_exp")):
                 self.compare(name, got[i], want[i], exact=True, what=f"{what} {field}")
+        return err
 
     def time_expand(self, x, q, sq, state, P, enc, precision, prefix="", metric="l2"):
 
@@ -2596,23 +2625,23 @@ class Smoke:
     def capture(self, shapes, out):
         """Within the block, keep the arguments of one call of an ``ops``
         function for each label of ``shapes`` (label -> (function name,
-        rows of its first argument)): its ``CAPTURE_CALL``-th call at those
-        rows, a search some steps in.  Tensors are copied before the call
-        (the expansion updates its hash in place), except the item table,
-        which no call writes."""
+        rows of its first argument[, n])): its n-th call at those rows
+        (default ``CAPTURE_CALL``, a search some steps in).  Tensors are
+        copied before the call (the expansion updates its hash in place),
+        except the item table, which no call writes."""
         import inspect
 
         torch = self.torch
         saved, seen = {}, {}
-        for name in {fn for fn, _ in shapes.values()}:
+        for name in {fn for fn, *_ in shapes.values()}:
             saved[name] = getattr(self.ops, name)
 
             def wrapper(*args, _fn=saved[name], _name=name, **kw):
-                for label, (fname, rows) in shapes.items():
+                for label, (fname, rows, *nth) in shapes.items():
                     if fname != _name or rows != args[0].shape[0] or label in out:
                         continue
                     seen[label] = seen.get(label, 0) + 1
-                    if seen[label] == CAPTURE_CALL:
+                    if seen[label] == (nth[0] if nth else CAPTURE_CALL):
                         bound = inspect.signature(_fn).bind(*args, **kw)
                         bound.apply_defaults()
                         out[label] = {k: v.clone() if torch.is_tensor(v) and v.numel() < 1 << 24
@@ -3587,6 +3616,155 @@ class Smoke:
               f"(smoke, then --full-config), examples/train_lm_torch.py --tiny: loss "
               f"{rec['first']:.4f} -> {rec['last']:.4f} in {LM_EXAMPLE_STEPS} steps, "
               f"{rec['seconds']:.3f} s", flush=True)
+
+    # --------------------------------------------------------------- phase 12
+    def phase_examples(self):
+        """The three core examples at the reference's sizes, in-process, each
+        with its launch counts zeroed just before it and every fp32 kernel
+        required to launch; no plain version of a kernel on a CUDA tensor
+        meanwhile.  Each kernel against its plain version on arguments
+        captured from each example (the seed gather, an expansion and the
+        intra-wave tile; for the parallel build also the first merge's
+        cross-search expansion and second-hop gather), within the real-valued
+        tolerance.  Then a registered metric refused on CUDA tensors before
+        any launch."""
+        import importlib.util
+
+        from repro_torch.kernels import expand, ref
+
+        plain_on_card = []
+
+        def watched(fn, name):
+            def wrapper(*args, **kw):
+                if any(isinstance(a, self.torch.Tensor) and a.is_cuda for a in args):
+                    plain_on_card.append(name)
+                return fn(*args, **kw)
+            return wrapper
+
+        plains = ((ref, "gather_distance"), (ref, "pairwise_distance"),
+                  (expand, "expand_reference"))
+        saved = [getattr(mod, name) for mod, name in plains]
+        captured = {}
+        for mod, name in plains:
+            setattr(mod, name, watched(getattr(mod, name), name))
+        try:
+            for name, wave in EXAMPLE_WAVES.items():
+                spec = importlib.util.spec_from_file_location(
+                    f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+                example = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(example)
+                shapes = {"seed_gather": ("gather_distance", wave),
+                          "expand": ("expand_step", wave),
+                          "tile": ("pairwise_distance", wave)}
+                if name == "parallel_build":
+                    # the first merge: a cross search's chunk of lanes, and
+                    # the second-hop proposals of one shard's rows
+                    shapes.update(merge_expand=("expand_step", MERGE_SEARCH_CHUNK, 1),
+                                  merge_gather=("gather_distance", example.N // example.SHARDS, 1))
+                captured[name] = {}
+                self.torch.cuda.synchronize()
+                self.ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                with self.capture(shapes, captured[name]):
+                    try:
+                        rec = example.main([])
+                    except AssertionError as exc:
+                        raise PhaseError(f"phase 12: examples/{name}_torch.py: assert failed: "
+                                         f"{exc!r}") from exc
+                self.torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                check(rec["device"].startswith("cuda"), f"phase 12: {name} ran on {rec['device']}")
+                self.path_counts(f"example_{name}", f"examples/{name}_torch.py")
+                self.example_line(name, rec, seconds)
+                for label in shapes:
+                    check(label in captured[name],
+                          f"phase 12: {name}: no call of {label}'s shape was seen")
+        finally:
+            for (mod, name), fn in zip(plains, saved):
+                setattr(mod, name, fn)
+        check(not plain_on_card,
+              f"phase 12: plain versions ran on CUDA tensors: {sorted(set(plain_on_card))}")
+        for name, calls in captured.items():
+            errs = {label: self.hold_captured(a, f"phase 12 {name} {label}")
+                    for label, a in calls.items()}
+            print(f"phase 12: examples/{name}_torch.py: each kernel within rtol={RTOL} "
+                  f"atol={ATOL} of its plain version on the example's own arguments, max abs "
+                  f"err {json.dumps(errs)}", flush=True)
+        self.registered_metric_refused()
+
+    def hold_captured(self, a, what):
+        """One captured ``ops`` call (a gather, an expansion or a pairwise
+        tile on real-valued rows) against its plain version on the same
+        arguments: the largest absolute error."""
+        from repro_torch.kernels import ref
+
+        if "cands" in a:
+            args = [a[k] for k in ("q", "x", "cands", "beam_ids", "beam_dist", "beam_exp",
+                                   "vis_ids", "vis_dist")]
+            kw = dict(metric=a["metric"], sq_norms=a["sq_norms"])
+            got = self.ops.expand_step(*args[:6], args[6].clone(), args[7].clone(),
+                                       hash_probes=a["hash_probes"], **kw)
+            want = self.plain_expand(*args[:6], args[6].clone(), args[7].clone(),
+                                     probes=a["hash_probes"], **kw)
+            B, C = args[2].shape
+            return self.compare_expand("fused_expand", got, want, f"{what} B={B} C={C}",
+                                       exact=False, beam_ids=False)
+        if "idx" in a:
+            q, x, idx, metric = a["q"], a["x"], a["idx"], a["metric"]
+            return self.compare("gather_distance",
+                                self.ops.gather_distance(q, x, idx, metric, sq_norms=a["sq_norms"]),
+                                ref.gather_distance(q, x, idx, metric, sq_norms=a["sq_norms"]),
+                                exact=False, what=f"{what} B={q.shape[0]} C={idx.shape[1]}")
+        q, x, metric, xn = a["q"], a["x"], a["metric"], a["x_sq_norms"]
+        return self.compare("pairwise_distance",
+                            self.ops.pairwise_distance(q, x, metric, x_sq_norms=xn),
+                            ref.pairwise_distance(q, x, metric, x_sq_norms=xn), exact=False,
+                            what=f"{what} m={q.shape[0]} n={x.shape[0]}")
+
+    def example_line(self, name, rec, seconds):
+        scalars = {k: v for k, v in rec.items() if isinstance(v, (int, float))}
+        print(f"phase 12: examples/{name}_torch.py in {seconds:.3f} s: {json.dumps(scalars)}",
+              flush=True)
+
+    def registered_metric_refused(self):
+        """A metric registered for the phase (L-infinity) on CUDA tensors:
+        each ``ops`` entry raises ``KeyError`` naming it, and nothing
+        launches."""
+        torch = self.torch
+        from repro_torch.core import metrics
+
+        @metrics.register("linf_probe")
+        def _linf(q, x):
+            return (q[..., :, None, :] - x[..., None, :, :]).abs().amax(-1)
+
+        try:
+            x, q = self.data(64, 16, 1), self.data(4, 16, 2)
+            idx = torch.randint(0, 64, (4, 12), generator=self.gen(3), device=self.dev,
+                                dtype=torch.int32)
+            B, e, H = 4, 8, 64
+            beam = (torch.full((B, e), -1, dtype=torch.int32, device=self.dev),
+                    torch.full((B, e), float("inf"), device=self.dev),
+                    torch.zeros((B, e), dtype=torch.bool, device=self.dev),
+                    torch.full((B, H), -1, dtype=torch.int32, device=self.dev),
+                    torch.full((B, H), float("inf"), device=self.dev))
+            self.ops.reset_launch_counts()
+            calls = {"pairwise_distance": lambda: self.ops.pairwise_distance(q, x, "linf_probe"),
+                     "gather_distance": lambda: self.ops.gather_distance(q, x, idx, "linf_probe"),
+                     "expand_step": lambda: self.ops.expand_step(q, x, idx, *beam,
+                                                                 metric="linf_probe")}
+            for name, call in calls.items():
+                try:
+                    call()
+                except KeyError as exc:
+                    check("linf_probe" in str(exc), f"phase 12: {name}'s refusal: {exc}")
+                else:
+                    raise PhaseError(f"phase 12: ops.{name} ran a registered metric on the card")
+            counts = self.ops.launch_counts()
+            check(not any(counts.values()), f"phase 12: launches while refusing: {counts}")
+            print("phase 12: a registered metric on CUDA tensors is refused by "
+                  f"{', '.join('ops.' + n for n in calls)} before any launch", flush=True)
+        finally:
+            del metrics._REGISTRY["linf_probe"]
 
     def kernel_records(self):
         out = []

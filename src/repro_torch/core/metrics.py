@@ -4,9 +4,17 @@ Smaller distance == closer.  ``l2`` is the squared euclidean distance in the
 matmul expansion ``‖q‖² + ‖x‖² − 2 q·x`` clamped at 0; ``ip`` is the negative
 inner product; ``cosine`` is ``1 − q̂·x̂``; ``l1`` and ``chi2`` are direct
 reductions (``chi2`` assumes non-negative inputs, with 0/0 -> 0).
+
+The metrics form a registry, as in the reference: ``register(name)`` adds a
+``(q (..., m, d), x (..., n, d)) -> (..., m, n)`` float32 function, and every
+plain version (brute force, the gather, the expansion, build and search)
+then runs it on CPU tensors.  No CUDA kernel computes a registered metric:
+``kernels.ops`` refuses one on a CUDA tensor before any launch.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Dict
 
 import torch
 
@@ -26,16 +34,37 @@ def _t(a):
     return a.transpose(-1, -2)
 
 
+# metric name -> pairwise function of float32 operands
+_REGISTRY: Dict[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = {}
+
+
+def register(name: str):
+    """Decorator adding a pairwise function under ``name``."""
+
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def names() -> list:
+    return sorted(_REGISTRY)
+
+
+@register("l2")
 def _l2(q, x):
     qn = (q * q).sum(-1, keepdim=True)
     xn = _t((x * x).sum(-1, keepdim=True))
     return (qn + xn - 2.0 * (q @ _t(x))).clamp_min(0.0)
 
 
+@register("ip")
 def _ip(q, x):
     return -(q @ _t(x))
 
 
+@register("cosine")
 def _cosine(q, x):
     return 1.0 - normalize_rows(q) @ _t(normalize_rows(x))
 
@@ -65,24 +94,44 @@ def _direct(term, q, x):
     return out
 
 
-_PAIRWISE = {
-    "l2": _l2,
-    "ip": _ip,
-    "cosine": _cosine,
-    "l1": lambda q, x: _direct(_l1_term, q, x),
-    "chi2": lambda q, x: _direct(_chi2_term, q, x),
-}
+_ROW_TERMS = {"l1": _l1_term, "chi2": _chi2_term}
+
+
+@register("l1")
+def _l1(q, x):
+    return _direct(_l1_term, q, x)
+
+
+@register("chi2")
+def _chi2(q, x):
+    return _direct(_chi2_term, q, x)
 
 
 def pairwise(metric: str, q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(..., m, d) queries x (..., n, d) points -> (..., m, n) float32
     distances; leading dims are a batch of independent products."""
-    if metric not in _PAIRWISE:
-        raise KeyError(f"unknown metric {metric!r}; have {sorted(_PAIRWISE)}")
-    return _PAIRWISE[metric](q.float(), x.float())
+    if metric not in _REGISTRY:
+        raise KeyError(f"unknown metric {metric!r}; have {names()}")
+    return _REGISTRY[metric](q.float(), x.float())
+
+
+def one_to_many(metric: str, q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(d,) query vs (n, d) points -> (n,) distances."""
+    return pairwise(metric, q[None, :], x)[0]
+
+
+def is_matmul_metric(metric: str) -> bool:
+    """True when the metric reduces to a product (the tensor-core metrics)."""
+    return metric in ("l2", "ip", "cosine")
 
 
 def row_terms(metric: str, q: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
-    """Direct-reduction metrics between q (b, d) and its rows cand (b, c, d)."""
-    term = _l1_term if metric == "l1" else _chi2_term
-    return term(q.float()[:, None, :], cand.float()).sum(-1)
+    """Metrics with no product form between q (b, d) and its rows cand
+    (b, c, d) -> (b, c): l1 and chi2 by their terms, any other registered
+    metric by its pairwise function with each query as its own batch of one
+    row (the reference's per-query ``pairwise``).  Unknown names raise
+    ``KeyError``."""
+    term = _ROW_TERMS.get(metric)
+    if term is not None:
+        return term(q.float()[:, None, :], cand.float()).sum(-1)
+    return pairwise(metric, q[:, None, :], cand)[:, 0, :]

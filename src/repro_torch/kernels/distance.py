@@ -62,8 +62,6 @@ def pairwise_distance(
     tensor-core form also as ``pairwise_distance.bf16_wgmma``) or else
     widened to float32.  CUDA tensors only; a form that fails to build or
     launch raises, and nothing falls back to another."""
-    if metric not in KERNEL_METRIC:
-        raise KeyError(f"unknown metric {metric!r}; have {sorted(KERNEL_METRIC)}")
     if metric == "cosine":
         q, x = metrics.normalize_rows(q), metrics.normalize_rows(x)
     if q.dtype == x.dtype == torch.bfloat16:

@@ -34,8 +34,6 @@ _MAX_WIDTH: dict = {}  # device -> max_width(device)
 def kernel_operands(q, x, metric, sq_norms):
     """The query as the kernel takes it (pre-normalized for cosine, as the
     reference's wrapper does) and a norm cache that is always a tensor."""
-    if metric not in KERNEL_METRIC:
-        raise KeyError(f"unknown metric {metric!r}; have {sorted(KERNEL_METRIC)}")
     q = metrics.normalize_rows(q) if metric == "cosine" else q.float()
     if metric in ("l2", "cosine"):
         sq_norms = squared_norms(x) if sq_norms is None else sq_norms.float()

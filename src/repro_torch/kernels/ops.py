@@ -8,6 +8,10 @@ fallback.  Callers in ``repro_torch.core`` reach the kernels only through
 these functions, by module attribute (``ops.expand_step(...)``).  The PQ
 rank-then-rerank composes here, around the exact fp32 expansion.
 
+A metric registered with ``core.metrics.register`` has no kernel: on a CUDA
+tensor these functions refuse it before any launch
+(``require_kernel_metric``), as the reference's Pallas kernels refuse it.
+
 Launch counts: ``launch_counts()`` reads, and ``reset_launch_counts()``
 zeroes, the per-kernel integers the wrappers bump where they launch.
 """
@@ -33,6 +37,18 @@ def reset_launch_counts() -> None:
     _cuda.reset_launches()
 
 
+def require_kernel_metric(metric: str, kernel_metrics) -> None:
+    """Raise ``KeyError`` naming ``metric`` and the metrics the kernels
+    compute (``kernel_metrics``, a kernel module's ``KERNEL_METRIC``) when
+    no kernel computes it."""
+    if metric not in kernel_metrics:
+        raise KeyError(
+            f"metric {metric!r} has no CUDA kernel; the kernels compute "
+            f"{sorted(kernel_metrics)}. A registered metric runs through the plain "
+            "versions on CPU tensors only"
+        )
+
+
 def pairwise_distance(
     q: torch.Tensor,
     x: torch.Tensor,
@@ -50,6 +66,8 @@ def pairwise_distance(
     device, as in the reference, whose Pallas pairwise kernel never takes
     one: it feeds no kernel of the main path."""
     compressed = enc is not None and precision != "fp32"
+    if x.is_cuda:
+        require_kernel_metric(metric, _distance.KERNEL_METRIC)
     if x.is_cuda and not compressed:
         return _distance.pairwise_distance(q, x, metric, x_sq_norms=x_sq_norms)
     return ref.pairwise_distance(q, x, metric, x_sq_norms=x_sq_norms, enc=enc, precision=precision)
@@ -71,6 +89,8 @@ def gather_distance(
     variant of the kernel (or its plain version on the CPU); ``"pq"`` is the
     plain ADC rank on either device, as in the reference (ADC has no TPU
     kernel to port)."""
+    if x.is_cuda:
+        require_kernel_metric(metric, _gather_dist.KERNEL_METRIC)
     if enc is None or precision == "fp32":
         enc, precision = None, "fp32"
     if precision == "pq" or not x.is_cuda:
@@ -151,6 +171,8 @@ def expand_step(
     rank-then-rerank: the fresh candidates are ranked by ADC, the best
     ``rerank_keep`` go through the exact fp32 expansion, and every fresh
     candidate counts in ``comps``."""
+    if x.is_cuda:
+        require_kernel_metric(metric, _gather_dist.KERNEL_METRIC)
     if enc is None or precision == "fp32":
         enc, precision = None, "fp32"
     if precision == "pq":

@@ -1,5 +1,5 @@
-"""The process group of a sharded deployment (counterpart of
-``repro.launch.mesh.make_host_mesh``).
+"""The process group of a sharded deployment and the production meshes
+(counterpart of ``repro.launch.mesh``).
 
 JAX's mesh is one controller over many devices; ``torch.distributed`` is
 SPMD: one process per shard, every process calling the same functions.
@@ -15,8 +15,16 @@ The backend is the caller's choice, never picked here:
   where its collectives stage the few tensors they move through the host
   (``core.distributed`` does that).
 
-Tensors stay on the device the caller gives them.  Nothing here runs when
-the module is imported.
+Tensors stay on the device the caller gives them.
+
+``make_production_mesh`` lays the reference's production meshes, (16, 16)
+``("data", "model")`` or (2, 16, 16) ``("pod", "data", "model")``, over the
+current world of 256 or 512 ranks as a ``DeviceMesh``.  Placement can be
+planned without that many devices: ``fake_world`` joins this process, as
+rank 0, to a fake process group of any size, whose collectives do nothing,
+and parameters made under ``FakeTensorMode`` and placed on its mesh
+(``models.sharding.place``) allocate nothing.  Nothing here runs when the
+module is imported.
 """
 
 from __future__ import annotations
@@ -58,6 +66,45 @@ def init_group(rank: int, world_size: int, backend: str, port: int, *,
     dist.init_process_group(
         backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
+    return dist.group.WORLD
+
+
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh over the current world (256 ranks for
+    one pod, 512 for two), rank r at the reference's row-major place: a
+    planning mesh of CPU devices, as a ``fake_world`` provides."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, names = PRODUCTION_MESHES[multi_pod]
+    need = 1
+    for s in shape:
+        need *= s
+    if not dist.is_initialized() or dist.get_world_size() != need:
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        raise ValueError(f"the {'x'.join(map(str, shape))} mesh needs a world of {need} "
+                         f"ranks, this process is in one of {have} (fake_world plans it)")
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def fake_world(world_size: int):
+    """Join this process, as rank 0, to a fake process group of
+    ``world_size`` ranks and return it; its collectives complete at once and
+    move nothing.  ``close_group()`` leaves it.
+
+    The store comes from ``torch.testing._internal.distributed.fake_pg``,
+    a private module of PyTorch (the ``"fake"`` backend registers on its
+    import); it may change between releases, and only planning uses it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("this process is already in a process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
     return dist.group.WORLD
 
 

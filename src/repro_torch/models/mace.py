@@ -143,6 +143,28 @@ def init_params(generator: torch.Generator, cfg: MACEConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def param_pspecs(cfg: MACEConfig) -> Dict[str, tuple]:
+    """Each parameter's spec (``models.sharding``): MACE's parameters are
+    small (under 10⁶), so every one is replicated (data parallel only)."""
+    specs = {
+        "species": (None, None),
+        "radial_w1": (None, None, None),
+        "radial_b1": (None, None),
+        "radial_w2": (None, None, None),
+        "mix0": (None, None, None),
+        "mix1": (None, None, None),
+        "mix2": (None, None, None),
+        "upd0": (None, None, None),
+        "ro_w1": (None, None, None),
+        "ro_b1": (None, None),
+        "ro_w2": (None, None, None),
+    }
+    if cfg.d_node_feat:
+        specs["featproj"] = (None, None)
+        specs["pos_embed"] = (None, None)
+    return specs
+
+
 def _scalar_basis(a0: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor, correlation: int):
     """The rank-0 features of the ACE product basis, the only ones that reach
     a readout: a0 (N, C), a1 (N, 3, C), a2 (N, 3, 3, C) -> b0 (N, n_b0 * C)."""

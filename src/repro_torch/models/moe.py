@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core import segments
 from repro_torch.models import common
+from repro_torch.models.sharding import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,13 +68,15 @@ def apply_moe(
 
     ``groups > 1`` runs the dispatch independently per contiguous token
     group (the reference's ``vmap``, here a loop), each with its own
-    capacity, and averages the aux values over the groups.
+    capacity, and averages the aux values over the groups; the group axis
+    is constrained over the data axes (the identity off a mesh).
     """
     T, d = x.shape
     if groups > 1 and T % groups == 0 and T // groups >= 8:
-        outs, auxs = zip(*(apply_moe(params, xg, cfg, act=act, capacity=capacity)
-                           for xg in x.reshape(groups, T // groups, d)))
-        return torch.cat(outs), {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+        xg = constrain(x.reshape(groups, T // groups, d), "batch", None, None)
+        outs, auxs = zip(*(apply_moe(params, xx, cfg, act=act, capacity=capacity) for xx in xg))
+        out = constrain(torch.stack(outs), "batch", None, None).reshape(T, d)
+        return out, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
     E, K = cfg.n_experts, cfg.top_k
     if capacity is None:
         capacity = int(cfg.capacity_factor * T * K / E)

@@ -124,6 +124,28 @@ def init_params(generator: torch.Generator, cfg: RecsysConfig) -> Params:
     return p
 
 
+def param_pspecs(cfg: RecsysConfig) -> Dict:
+    """Each parameter's spec (``models.sharding``): the embedding tables
+    row-split over "model", everything else replicated.  The tree's layout
+    comes from ``init_params`` of ``_tiny_like(cfg)``."""
+    specs = _replicated(init_params(torch.Generator().manual_seed(0), _tiny_like(cfg)))
+    for name in ("table", "lin_table"):
+        if name in specs:
+            specs[name] = ("model", None)
+    return specs
+
+
+def _replicated(tree):
+    if isinstance(tree, dict):
+        return {k: _replicated(v) for k, v in tree.items()}
+    return (None,) * tree.dim()
+
+
+def _tiny_like(cfg: RecsysConfig) -> RecsysConfig:
+    """The same parameter layout with tiny tables (spec derivation only)."""
+    return dataclasses.replace(cfg, vocab_per_field=8)
+
+
 # ---------------------------------------------------------------------------
 # Row chunks
 # ---------------------------------------------------------------------------

@@ -13,10 +13,13 @@ gradient is being taken), so only layer-boundary activations are kept.
 Activations are computed in ``compute_dtype`` (bf16 by default), parameters
 stored in ``param_dtype``; softmaxes and the loss run in fp32.
 
-Placement (the reference's ``param_pspecs``, ``_use_constrain_layer`` and
-``sharding.constrain``, the identity off a mesh) is ROADMAP item 13e and
-has no counterpart here; the config keeps its fields so configs compare
-equal.
+Placement follows the reference: ``param_pspecs`` gives each parameter's
+spec on the production meshes (Megatron tensor parallelism, expert
+parallelism at 16 experts or more), and the forward calls
+``sharding.constrain`` at the reference's sites, with the ZeRO-3 use
+constraints of ``_use_constrain_layer`` under ``zero3_use_constraints`` and
+sequence-sharded layer boundaries under ``seq_shard``.  Off a mesh, and on
+plain tensors, every constraint is the identity.
 
 Decode caches are written in place: ``decode_step`` and
 ``decode_step_split`` store the new token's K/V into the cache tensors they
@@ -38,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as device_lib
 from repro_torch.models import attention, common
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.sharding import constrain
 from repro_torch.models.attention import ring_decode_attention  # noqa: F401  (the reference's home)
 
 FULL_WINDOW = 1 << 30  # "no window": i - j < 2^30 is always true in-range
@@ -77,7 +81,9 @@ class TransformerConfig:
     kv_chunk: int = 512
     # the statically tiled attention schedule (``tiled_causal_attention``)
     unrolled: bool = False
-    # placement knobs of the reference (item 13e); no effect here
+    # placement: ZeRO-3 weight use constraints and sequence-sharded layer
+    # boundaries, both on the statically unrolled schedule (off a mesh,
+    # constraints are the identity)
     zero3_use_constraints: bool = False
     seq_shard: bool = False
 
@@ -202,6 +208,43 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> Dict[str,
     return p
 
 
+def param_pspecs(cfg: TransformerConfig, fsdp: bool = False) -> Dict[str, tuple]:
+    """Each parameter's spec (``models.sharding``): Megatron tensor
+    parallelism over "model", with ``fsdp`` the d_model axis of the big
+    matrices over "data"; MoE experts split over "model" at 16 experts or
+    more (expert parallelism), else each expert tensor-parallel."""
+    dp = "data" if fsdp else None
+    specs: Dict[str, tuple] = {
+        "embed": ("model", None),
+        "ln1": (None, None),
+        "ln2": (None, None),
+        "ln_f": (None,),
+        "wq": (None, dp, "model"),
+        "wk": (None, dp, "model"),
+        "wv": (None, dp, "model"),
+        "wo": (None, "model", dp),
+    }
+    if cfg.qkv_bias:
+        specs.update(bq=(None, "model"), bk=(None, "model"), bv=(None, "model"))
+    if cfg.moe is not None:
+        specs["router"] = (None, None, None)
+        if cfg.moe.n_experts >= 16:  # expert parallelism (arctic: 128 / 16 per chip)
+            specs.update(w_gate=(None, "model", dp, None), w_up=(None, "model", dp, None),
+                         w_down=(None, "model", None, dp))
+        else:  # per-expert tensor parallelism (mixtral: 8 experts < 16 chips)
+            specs.update(w_gate=(None, None, dp, "model"), w_up=(None, None, dp, "model"),
+                         w_down=(None, None, "model", dp))
+        if cfg.dense_residual:
+            specs.update(dense_gate=(None, dp, "model"), dense_up=(None, dp, "model"),
+                         dense_down=(None, "model", dp))
+    else:
+        specs.update(w_gate=(None, dp, "model"), w_up=(None, dp, "model"),
+                     w_down=(None, "model", dp))
+    if not cfg.tie_embeddings:
+        specs["head"] = (None, "model")
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # Layer pieces shared by forward, prefill and the two decode steps
 # ---------------------------------------------------------------------------
@@ -221,6 +264,37 @@ def _split_layer_params(params):
 
 def _layer_slice(layer_params, li: int) -> Dict[str, torch.Tensor]:
     return {k: v[li] for k, v in layer_params.items()}
+
+
+def _use_constrain_layer(lp: Dict[str, torch.Tensor], cfg: TransformerConfig):
+    """ZeRO-3 made explicit, under ``zero3_use_constraints``: each weight of
+    one layer constrained to its use sharding (replicated over "data",
+    split over "model"), so a data-sharded weight is gathered once per use
+    instead of its activation being reduced."""
+    if not cfg.zero3_use_constraints:
+        return lp
+    specs = {
+        "wq": (None, "model"), "wk": (None, "model"), "wv": (None, "model"),
+        "wo": ("model", None),
+        "dense_gate": (None, "model"), "dense_up": (None, "model"),
+        "dense_down": ("model", None),
+    }
+    if cfg.moe is not None and cfg.moe.n_experts >= 16:  # expert parallelism
+        specs.update(w_gate=("model", None, None), w_up=("model", None, None),
+                     w_down=("model", None, None))
+    elif cfg.moe is not None:  # per-expert tensor parallelism
+        specs.update(w_gate=(None, None, "model"), w_up=(None, None, "model"),
+                     w_down=(None, "model", None))
+    else:
+        specs.update(w_gate=(None, "model"), w_up=(None, "model"), w_down=("model", None))
+    return {k: constrain(v, *specs[k]) if k in specs else v for k, v in lp.items()}
+
+
+def _unrolled_slice(layer_params, li: int, cfg: TransformerConfig):
+    """Layer li's weights; the reference's statically unrolled schedule
+    also constrains them to their use sharding."""
+    lp = _layer_slice(layer_params, li)
+    return _use_constrain_layer(lp, cfg) if cfg.unrolled else lp
 
 
 def _embed(rest, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
@@ -255,9 +329,14 @@ def _qkv(a: torch.Tensor, lp, cfg: TransformerConfig, rope: tuple):
     return q, k, v.reshape(B, S, KV, dh)
 
 
-def _ffn(m: torch.Tensor, lp, cfg: TransformerConfig, act: str):
+def _identity(x, *spec):
+    return x
+
+
+def _ffn(m: torch.Tensor, lp, cfg: TransformerConfig, act: str, hint=_identity):
     """The layer's FFN on normed activations (B, S, d): the dense SwiGLU, or
-    the MoE (plus arctic's dense residual).  Returns (out, aux)."""
+    the MoE (plus arctic's dense residual).  Returns (out, aux).  ``hint``
+    places the dense intermediate (the forward's: ``constrain``)."""
     cd = m.dtype
     B, S, d = m.shape
     fn = common.ACTIVATIONS[cfg.act]
@@ -271,6 +350,7 @@ def _ffn(m: torch.Tensor, lp, cfg: TransformerConfig, act: str):
             out = out + dz @ lp["dense_down"].to(cd)
     else:
         z = fn(m @ lp["w_gate"].to(cd)) * (m @ lp["w_up"].to(cd))
+        z = hint(z, "batch", None, "model")
         out = z @ lp["w_down"].to(cd)
     return out, aux
 
@@ -291,21 +371,24 @@ def _softcap(logits: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _layer(cfg: TransformerConfig):
-    """One layer on (B, S, d) -> (h, MoE aux, k, v); prefill keeps k, v."""
+def _layer(cfg: TransformerConfig, hint=_identity):
+    """One layer on (B, S, d) -> (h, MoE aux, k, v); prefill keeps k, v.
+    ``hint`` places the activations: the forward passes ``constrain``;
+    prefill has no activation constraints, as in the reference."""
 
     def body(h: torch.Tensor, lp: Dict[str, torch.Tensor], window: int, cos: torch.Tensor,
              sin: torch.Tensor):
         B, S, d = h.shape
         a = common.rms_norm(h, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(a, lp, cfg, (cos, sin))
+        q = hint(q, "batch", None, "model", None)
         attn = attention.tiled_causal_attention if cfg.unrolled else \
             attention.chunked_causal_attention
         o = attn(q, k, v, window, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-        h = h + o.reshape(B, S, -1) @ lp["wo"].to(h.dtype)
+        h = h + hint(o.reshape(B, S, -1) @ lp["wo"].to(h.dtype), "batch", None, None)
         m = common.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        out, aux = _ffn(m, lp, cfg, cfg.act)
-        return h + out, aux, k, v
+        out, aux = _ffn(m, lp, cfg, cfg.act, hint)
+        return h + hint(out, "batch", None, None), aux, k, v
 
     return body
 
@@ -321,14 +404,16 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg: Transfor
     """tokens (B, S) -> (logits (B, S, vocab) in the compute dtype, aux)."""
     B, S = tokens.shape
     layer_params, rest = _split_layer_params(params)
-    h = _embed(rest, tokens, cfg)
+    h = constrain(_embed(rest, tokens, cfg), "batch", None, None)
     rope = _rope(torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S), cfg)
     wins = cfg.window_by_layer()
-    body = _layer(cfg)
+    body = _layer(cfg, hint=constrain)
     remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
     for li in range(cfg.n_layers):
-        lp = _layer_slice(layer_params, li)
+        lp = _unrolled_slice(layer_params, li, cfg)
+        if cfg.unrolled and cfg.seq_shard:  # Megatron-SP: boundaries split over S
+            h = constrain(h, "batch", "model", None)
         if remat:
             h, aux, _, _ = checkpoint(body, h, lp, int(wins[li]), *rope, use_reentrant=False)
         else:
@@ -336,7 +421,7 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg: Transfor
         auxs.append(aux)
     h = common.rms_norm(h, rest["ln_f"], cfg.norm_eps)
     logits = _softcap(h @ _head(rest, cfg, h.dtype), cfg)
-    return logits, _stack_aux(auxs)
+    return constrain(logits, "batch", None, "model"), _stack_aux(auxs)
 
 
 def loss_fn(params, tokens: torch.Tensor, cfg: TransformerConfig):
@@ -362,7 +447,7 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig):
     B, S = tokens.shape
     KV, dh = cfg.n_kv_heads, cfg.head_dim
     layer_params, rest = _split_layer_params(params)
-    h = _embed(rest, tokens, cfg)
+    h = constrain(_embed(rest, tokens, cfg), "batch", None, None)
     rope = _rope(torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S), cfg)
     wins = cfg.window_by_layer()
     shape = (cfg.n_layers, B, S, KV, dh)
@@ -370,7 +455,7 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig):
     vc = torch.empty(shape, dtype=torch.bfloat16, device=h.device)
     body = _layer(cfg)
     for li in range(cfg.n_layers):
-        h, _, k, v = body(h, _layer_slice(layer_params, li), int(wins[li]), *rope)
+        h, _, k, v = body(h, _unrolled_slice(layer_params, li, cfg), int(wins[li]), *rope)
         kc[li], vc[li] = k, v
     hl = common.rms_norm(h[:, -1], rest["ln_f"], cfg.norm_eps)
     logits = _softcap((hl @ _head(rest, cfg, hl.dtype)).to(torch.float32), cfg)
@@ -477,7 +562,8 @@ def decode_step_split(params, cache, tokens: torch.Tensor, cfg: TransformerConfi
             vc[bidx, at] = v[:, 0].to(vc.dtype)
             return fn(q, kc, vc, ln, w)
 
-        h = _decode_layer(h, _layer_slice(layer_params, li), cfg, rope, attend, cfg.act)
+        lp = _use_constrain_layer(_layer_slice(layer_params, li), cfg)
+        h = _decode_layer(h, lp, cfg, rope, attend, cfg.act)
     hf = common.rms_norm(h[:, 0], rest["ln_f"], cfg.norm_eps)
     logits = _softcap((hf @ _head(rest, cfg, hf.dtype)).to(torch.float32), cfg)
     return logits, {**cache, "len": ln + 1}
@@ -508,7 +594,7 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: TransformerConfig):
             vc[bidx, at] = v[:, 0].to(vc.dtype)
             return attention.decode_attention(q, kc, vc, ln, w)
 
-        h = _decode_layer(h, _layer_slice(layer_params, li), cfg, rope, attend, "silu")
+        h = _decode_layer(h, _unrolled_slice(layer_params, li, cfg), cfg, rope, attend, "silu")
     hf = common.rms_norm(h[:, 0], rest["ln_f"], cfg.norm_eps)
     logits = _softcap(hf @ _head(rest, cfg, hf.dtype), cfg)
     return logits.to(torch.float32), {"k": cache["k"], "v": cache["v"], "len": ln + 1}

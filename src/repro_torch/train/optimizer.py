@@ -189,6 +189,33 @@ _OPTS = {
 }
 
 
+def opt_state_pspecs(param_specs: Tree, params_shape: Tree, cfg: OptConfig) -> Tree:
+    """The optimizer state's specs (``models.sharding``), mirroring the
+    parameters' ``param_specs``; ``params_shape`` is the parameter tree (or
+    any tree of tensors of the same shapes).  AdamW's moments take the
+    parameters' specs; Adafactor's factored row statistics drop the last
+    dimension's entry and its column statistics the second to last, an
+    unfactored leaf keeping a full second moment (``vc``) beside a
+    one-element ``vr``; the step is replicated."""
+    if cfg.name == "adamw":
+        return {"m": param_specs, "v": param_specs, "step": ()}
+    if cfg.name == "adafactor":
+        def parts(spec, p):
+            return tuple(spec) + (None,) * (p.dim() - len(spec))
+
+        def vr_spec(spec, p):
+            return parts(spec, p)[:-1] if _factorable(p) else (None,)
+
+        def vc_spec(spec, p):
+            full = parts(spec, p)
+            return full[:-2] + full[-1:] if _factorable(p) else full
+
+        # a spec tuple is a leaf of ``tree_map``, which recurses into dicts only
+        return {"vr": tree_map(vr_spec, param_specs, params_shape),
+                "vc": tree_map(vc_spec, param_specs, params_shape), "step": ()}
+    return {"step": ()}
+
+
 def init_opt_state(params: Tree, cfg: OptConfig) -> Tree:
     return _OPTS[cfg.name][0](params)
 

@@ -924,3 +924,33 @@ def test_atom_build_kernels_match_plain(card, monkeypatch):
     g_p, st_p = construct.build(x, cfg, seed_fn=seed_fn, device=card)
     _graph_fields_equal(g_k, g_p)
     assert int(st_k.n_comps) == int(st_p.n_comps)
+
+
+def test_registered_metric_refused_before_any_launch(card):
+    """A metric registered with ``core.metrics.register`` has no kernel:
+    each ``ops`` entry refuses it on CUDA tensors, naming it, and nothing
+    launches."""
+    from repro_torch.core import metrics
+
+    @metrics.register("linf_card")
+    def _linf(q, x):
+        return (q[..., :, None, :] - x[..., None, :, :]).abs().amax(-1)
+
+    try:
+        x, q = _data((64, 16), 1, "l2", True, card), _data((4, 16), 2, "l2", True, card)
+        idx = torch.randint(0, 64, (4, 12), device=card, dtype=torch.int32)
+        B, e, H = 4, 8, 64
+        beam = (torch.full((B, e), -1, dtype=torch.int32, device=card),
+                torch.full((B, e), float("inf"), device=card),
+                torch.zeros((B, e), dtype=torch.bool, device=card),
+                torch.full((B, H), -1, dtype=torch.int32, device=card),
+                torch.full((B, H), float("inf"), device=card))
+        ops.reset_launch_counts()
+        for call in (lambda: ops.pairwise_distance(q, x, "linf_card"),
+                     lambda: ops.gather_distance(q, x, idx, "linf_card"),
+                     lambda: ops.expand_step(q, x, idx, *beam, metric="linf_card")):
+            with pytest.raises(KeyError, match="'linf_card'"):
+                call()
+        assert not any(ops.launch_counts().values())
+    finally:
+        del metrics._REGISTRY["linf_card"]

@@ -48,7 +48,8 @@ def test_no_jax_or_reference_package_in_sys_modules():
 def test_isolation_check_covers_every_module():
     """The subprocess above imports every module of the package, the mesh,
     checkpoint, distributed, build-variant and recommender modules among
-    them, the training and GNN modules, and the LM modules and configs."""
+    them, the training and GNN modules, the LM modules and configs, and
+    placement."""
     mods = _modules()
     for name in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
                  "repro_torch.train.checkpoint", "repro_torch.configs.knn_olg",
@@ -66,7 +67,8 @@ def test_isolation_check_covers_every_module():
                  "repro_torch.models.transformer", "repro_torch.configs.lm_shapes",
                  "repro_torch.configs.gemma3_1b", "repro_torch.configs.stablelm_1_6b",
                  "repro_torch.configs.qwen2_5_3b", "repro_torch.configs.mixtral_8x7b",
-                 "repro_torch.configs.arctic_480b"):
+                 "repro_torch.configs.arctic_480b", "repro_torch.models.sharding",
+                 "repro_torch.launch.placement"):
         assert name in mods, name
 
 
@@ -82,25 +84,29 @@ def test_chip_smoke_imports_no_jax():
     _assert_imports_no_jax("chip_smoke.py")
 
 
-@pytest.mark.parametrize("path", ["examples/retrieval_serving_torch.py",
-                                  "examples/molecule_graphs_torch.py",
-                                  "examples/train_lm_torch.py",
-                                  "src/repro_torch/configs/__init__.py"])
+EXAMPLES = ("retrieval_serving_torch.py", "molecule_graphs_torch.py", "train_lm_torch.py",
+            "quickstart_torch.py", "lifecycle_torch.py", "parallel_build_torch.py")
+
+
+@pytest.mark.parametrize("path", [f"examples/{name}" for name in EXAMPLES]
+                         + ["src/repro_torch/configs/__init__.py",
+                            "src/repro_torch/__init__.py", "src/repro_torch/core/__init__.py"])
 def test_example_and_registry_sources_import_no_jax(path):
     _assert_imports_no_jax(path)
 
 
 def test_example_and_registry_import_no_jax():
-    """The port's examples and registry, imported in a fresh process, bring
-    in neither JAX nor the reference package."""
-    examples = [str(ROOT / "examples" / f) for f in ("retrieval_serving_torch.py",
-                                                     "molecule_graphs_torch.py",
-                                                     "train_lm_torch.py")]
+    """The port's examples, registry and facades (every name of
+    ``repro_torch.__all__`` and ``repro_torch.core.__all__``), imported in a
+    fresh process, bring in neither JAX nor the reference package."""
+    examples = [str(ROOT / "examples" / f) for f in EXAMPLES]
     code = (
         "import importlib.util, sys\n"
-        "import repro_torch\n"
+        "import repro_torch, repro_torch.core\n"
         "import repro_torch.configs as c\n"
         "[c.get(a) for a in c.names()]\n"
+        "[getattr(repro_torch, n) for n in repro_torch.__all__]\n"
+        "[getattr(repro_torch.core, n) for n in repro_torch.core.__all__]\n"
         "assert repro_torch.build is repro_torch.core.construct.build\n"
         f"for ex in {examples!r}:\n"
         "    spec = importlib.util.spec_from_file_location('ex', ex)\n"

@@ -53,18 +53,34 @@ def compiled_reference():
     """Within the block, the reference functions that its builds and
     snapshot loads call outside any compiled step — ``brute.exact_seed_graph``
     (the seed graph and a coarse level's landmark graph),
-    ``hierarchy.note_inserted`` (the seed prefix's cell assignment) and
-    ``graph.rebuild_reverse``/``attach_sq_norms`` (restores) — run compiled
-    once per shape instead of op by op: the same functions, at a tenth of
-    their first-call time on the CPU."""
+    ``hierarchy.note_inserted`` (the seed prefix's cell assignment),
+    ``graph.rebuild_reverse`` (restores, and each refine's reverse lists
+    through ``nndescent``'s own name for it), ``graph.attach_sq_norms`` and
+    ``nndescent._reverse_sample`` (integer work only) — run compiled once
+    per shape instead of op by op: the same functions, at a tenth of their
+    first-call time on the CPU.  And ``nndescent._join_round`` pads its
+    nodes to one chunk of at most n rows instead of ``node_chunk`` (2048):
+    with n <= 2048 there is one chunk either way and padded rows propose
+    nothing, so the lists are the same, at a quarter of the CPU time of a
+    512-row refine."""
     from repro.core import graph as jgraph
     from repro.core import hierarchy as jhier
+    from repro.core import nndescent as jnnd
+
+    join_round = jnnd._join_round
+
+    def join_round_unpadded(x, ids, dist, is_new, rev_ids, rev_new, metric, dispatch, chunk):
+        return join_round(x, ids, dist, is_new, rev_ids, rev_new, metric, dispatch,
+                          min(chunk, ids.shape[0]))
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jbrute, "exact_seed_graph", jax_exact_seed_graph)
+        mp.setattr(jnnd, "_reverse_sample", jax.jit(jnnd._reverse_sample, static_argnums=(2,)))
+        mp.setattr(jnnd, "_join_round", join_round_unpadded)
         for module, name in ((jhier, "note_inserted"), (jgraph, "rebuild_reverse"),
                              (jgraph, "attach_sq_norms")):
             mp.setattr(module, name, jax.jit(getattr(module, name)))
+        mp.setattr(jnnd, "rebuild_reverse", jgraph.rebuild_reverse)
         yield
 
 
