@@ -118,8 +118,8 @@ needs one NVIDIA card and runs, in order:
    memory, recall@10 over phase 4's rows, which must reach the sequential
    recall less 0.02 (the reference's tolerance), or, where it misses, the
    same build through the plain versions less 0.01; invariants and the
-   canonical λ.  (b) A 4-shard ``ShardedIndex`` of the same rows under 12
-   of phase 6's rounds (half of them: a cut of its depth, for the run's
+   canonical λ.  (b) A 4-shard ``ShardedIndex`` of the same rows under 8
+   of phase 6's rounds (a third of them: a cut of its depth, for the run's
    time aim) in requests of 4 queries through ``retrieve`` (churn:
    4,096 random live ids removed, 4,096 fresh rows added in batches that
    fit the least-filled shard, ``compact()``): p50/p99 per request, QPS,
@@ -166,7 +166,7 @@ needs one NVIDIA card and runs, in order:
    ``full_config()``, AdamW over the shared 65,536-row ``train_batch`` from
    the skip-ahead loader (xdeepfm in 2 microbatches), the first step on the
    first 256 rows against the CPU in float64 (the loss, and every gradient
-   leaf within 1e-4 of its largest element), then one warm-up and 3 timed
+   leaf within 1e-4 of its largest element), then one warm-up and 2 timed
    steps (ms per step, peak memory, finite losses); (b) the paper's graph
    over 10^5 atoms uniform in a box at the example's density (k=8, W=1024):
    build seconds, scanning rate, launches, edge recall@8 against the exact
@@ -175,7 +175,7 @@ needs one NVIDIA card and runs, in order:
    (energy and forces timed, peak memory) and against the CPU in float64
    on a slab of the box, then ``examples/molecule_graphs_torch.py``;
    (c) MACE training at full_graph_sm (a cora-size ``random_graph``) and
-   molecule (128 molecules, 2-NN edges), AdamW, 5 timed steps each;
+   molecule (128 molecules, 2-NN edges), AdamW, 3 timed steps each;
    (d) the two-level data-parallel step on 4 gloo ranks on the one card
    (2 pods x 2 data ranks, ``_train_rank``), MACE molecule, 20 SGD steps
    with the pod hop compressed and 20 without: every rank's parameters
@@ -225,7 +225,19 @@ needs one NVIDIA card and runs, in order:
    registered for the phase must be refused by ``ops.pairwise_distance``,
    ``ops.gather_distance`` and ``ops.expand_step`` on CUDA tensors before
    any launch;
-13. a ``kernels`` JSON line: each kernel's launches in the build of its own
+13. the dry run held against the card: (a) knn-lgd ``search_4k``'s step
+   (``configs.cells.knn_search_step``: ``init_state``, one ``step``, the
+   shards' all-gather and merge) planned on a world of 1 at phase 4's graph
+   (10^6 rows, d=128) and a batch of 64 (``cells.lower``, fakes only), then
+   run on the card over a gloo group of 1: planned against measured peak
+   bytes (the arguments plus ``torch.cuda.max_memory_allocated`` over the
+   step from a reset, less what was allocated before), which must agree
+   within 25%, the planned kernel calls against the launch counts, which
+   must be equal, and the planned FLOPs and bytes with their bound time
+   beside the step's measured time; (b) gemma3-1b ``decode_32k`` at batch 2
+   planned on a (1, 1) mesh and one ``decode_step`` run on the card from a
+   dense 32,768-position cache: planned against measured peak;
+14. a ``kernels`` JSON line: each kernel's launches in the build of its own
    precision (phase 4 for fp32, phase 5 for bf16 and int8, the ``data_bf16``
    build for the bf16-operand pairwise, whose tensor-core form has a record
    of its own) and, for the three fp32 kernels, in
@@ -275,9 +287,9 @@ QUERY_SEED, SEARCH_SEED = 17, 19  # phase 5's held-out queries and entry points
 # same mixture), the loop's entry points, the victims, the coarse landmarks
 SERVE_QUERY_SEED, FRESH_SEED, LOOP_SEED, VICTIM_SEED, LANDMARK_SEED = 29, 23, 31, 37, 41
 SERVE_ROUNDS, SERVE_BURST, CHURN, CHURN_EVERY = 24, 40, 4096, 4
-# phase 7b serves half of phase 6's rounds (its 4-query requests pay the
+# phase 7b serves a third of phase 6's rounds (its 4-query requests pay the
 # host loop once per shard), which keeps the run inside its time aim
-ROUTER_ROUNDS = 12
+ROUTER_ROUNDS = 8
 # phase 3: rows of the build without the intra-wave tile (a cut of its depth)
 INTRA_OFF_ROWS = 10_000
 SERVE_LANDMARKS = 4000
@@ -342,7 +354,7 @@ ATOM_INT_SEED, ATOM_BUILD_SEED = 83, 97
 # first CHECK_ROWS rows is held against the CPU in float64: the loss within
 # GRAD_RTOL of itself, each gradient leaf within GRAD_RTOL of its largest
 # element (fp32 sums in another order)
-TRAIN_SEED, TRAIN_LR, TRAIN_STEPS, XDEEPFM_ACCUM, GRAD_RTOL = 89, 1e-3, 3, 2, 1e-4
+TRAIN_SEED, TRAIN_LR, TRAIN_STEPS, XDEEPFM_ACCUM, GRAD_RTOL = 89, 1e-3, 2, 2, 1e-4
 # (b) the paper's graph under MACE: ATOM_N atoms uniform in a box at the
 # example's density (3,000 atoms in 30^3), k=8, W=1024; MACE at
 # full_config("molecule") over its edges; the CPU's float64 check on the
@@ -360,7 +372,7 @@ MACE_PARAM_SEED, MACE_DATA_SEED = 101, 103
 # (c) MACE training at full_graph_sm and molecule (MOLECULES of 30 atoms,
 # k=MOL_K nearest neighbours each: 60 edges, the nearest a k-NN list comes
 # to the shape's 64), one warm-up and MACE_STEPS timed steps
-MACE_STEPS, MOLECULES, MOL_K = 5, 128, 2
+MACE_STEPS, MOLECULES, MOL_K = 3, 128, 2
 # (d) the two-level data-parallel step on DP_RANKS gloo ranks (DP_PODS pods)
 # on the one card: DP_STEPS SGD steps with the pod hop compressed and as
 # many uncompressed; uncompressed equals one process on the whole batch
@@ -403,6 +415,9 @@ LM_HBM_BYTES_S = 3.35e12  # the H100 SXM's published memory rate
 # (``construct.build_parallel``'s ``search_chunk``)
 EXAMPLE_WAVES = {"quickstart": 256, "lifecycle": 512, "parallel_build": 256}
 MERGE_SEARCH_CHUNK = 512
+# ``--host-times``: phase 6's traffic served this many times after one
+# build, a median against the host's noise
+HOST_SERVE_RUNS = 3
 
 # the kernels, the CUDA sources that replace the TPU kernels, and the
 # pallas_call sites with the storage type each form takes
@@ -467,9 +482,58 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def host_times(root: Path) -> dict:
+    """Phase 4's knn-lgd build and phase 6's serving run through the
+    kernels, with the ``chip_smoke.py`` and the package of the checkout at
+    ``root`` (its phases' own code, data and seeds), after one untimed
+    build of 20,000 rows: the build's seconds and, for ``HOST_SERVE_RUNS``
+    runs of the same traffic, each run's serving p50/p99 and the median p50.
+    Run once per checkout, each in its own process, to compare two trees on
+    one host."""
+    import importlib.util
+
+    import torch
+
+    sys.path.insert(0, str(root / "src"))
+    spec = importlib.util.spec_from_file_location("smoke_at_root", root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    from repro_torch.configs import knn_lgd
+    from repro_torch.data import synthetic
+    from repro_torch.launch import build_graph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = mod.Smoke(torch)
+    smoke.build_kernels()
+    cfg = knn_lgd.full_config()
+    smoke.xf = build_graph.make_data(20_000, knn_lgd.D, "l2", smoke.dev)
+    smoke.build_full(cfg)
+    smoke.xf = build_graph.make_data(knn_lgd.N_ROWS, knn_lgd.D, "l2", smoke.dev)
+    smoke.g32, _, t_build = smoke.build_full(cfg)
+    events = mod.SERVE_ROUNDS // mod.CHURN_EVERY + 1
+    smoke.serve_queries = synthetic.clustered(
+        smoke.gen(build_graph.DATA_SEED), (mod.SERVE_ROUNDS + 1) * mod.SERVE_BURST, knn_lgd.D,
+        sample_generator=smoke.gen(mod.SERVE_QUERY_SEED))
+    smoke.serve_fresh = synthetic.clustered(
+        smoke.gen(build_graph.DATA_SEED), events * mod.CHURN, knn_lgd.D,
+        sample_generator=smoke.gen(mod.FRESH_SEED))
+    reps = [smoke.serve_run()[2] for _ in range(HOST_SERVE_RUNS)]
+    p50 = [r["p50_latency_ms"] for r in reps]
+    return {"root": str(root), "build_s": t_build, "serve_p50_ms": p50,
+            "serve_p50_median_ms": sorted(p50)[len(p50) // 2],
+            "serve_p99_ms": [r["p99_latency_ms"] for r in reps]}
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--host-times":
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 1
+        print(f"device: {nvidia_smi_line()}", flush=True)
+        print(json.dumps(host_times(Path(sys.argv[2]).resolve())), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -489,7 +553,8 @@ def main() -> int:
                       smoke.phase_build_parity, smoke.phase_full, smoke.phase_compressed,
                       smoke.phase_serving, smoke.phase_parallel, smoke.phase_router,
                       smoke.phase_merge_shards, smoke.phase_mesh, smoke.phase_recsys,
-                      smoke.phase_train, smoke.phase_lm, smoke.phase_examples):
+                      smoke.phase_train, smoke.phase_lm, smoke.phase_examples,
+                      smoke.phase_dryrun):
             phase()
             print(f"  [{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except PhaseError as exc:
@@ -3765,6 +3830,104 @@ class Smoke:
                   f"{', '.join('ops.' + n for n in calls)} before any launch", flush=True)
         finally:
             del metrics._REGISTRY["linf_probe"]
+
+    # --------------------------------------------------------------- phase 13
+    def phase_dryrun(self):
+        """The dry run's plans held against the card: (a) knn-lgd
+        search_4k's step at phase 4's graph and 64 queries on a world of 1;
+        (b) gemma3-1b decode_32k at batch 2 on a (1, 1) mesh."""
+        torch = self.torch
+        from repro_torch.configs import cells, knn_lgd
+        from repro_torch.core import search
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.launch import roofline
+
+        def planned(arch, shape, dims, names, opts):
+            mesh_lib.fake_world(1)
+            try:
+                mesh = torch.distributed.device_mesh.init_device_mesh(
+                    "cpu", dims, mesh_dim_names=names)
+                cell = cells.plan(arch, shape, mesh, opts)
+                t0 = time.perf_counter()
+                low = cells.lower(cell)
+                return cell, low, roofline.analyze(low, mesh), time.perf_counter() - t0
+            finally:
+                from repro_torch.models import sharding
+
+                sharding.set_mesh(None)
+                mesh_lib.close_group()
+
+        def measured_peak(step, arg_bytes):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+            del out
+            return peak, ms
+
+        # (a) the k-NN search step: planned, then run on the card
+        B = 64
+        g, x = self.g32, self.xf
+        cell, low, rec, t_plan = planned("knn-lgd", "search_4k", (1,), ("data",),
+                                         {"n_total": x.shape[0], "batch": B})
+        scfg = dataclasses.replace(knn_lgd.full_config().search_config(), seed_mode="random")
+        q = self.serve_queries[:B].contiguous()
+        seeds = search.random_seeds(B, scfg.n_seeds, g.n_valid, self.gen(SEARCH_SEED), self.dev)
+        arg_bytes = sum(t.numel() * t.element_size()
+                        for t in (*[f for f in g if isinstance(f, torch.Tensor)], x, q, seeds))
+        group = mesh_lib.init_group(0, 1, "gloo", mesh_lib.free_port())
+        try:
+            self.ops.reset_launch_counts()
+            peak, ms = measured_peak(
+                lambda: cells.knn_search_step(g, x, q, seeds, scfg, group), arg_bytes)
+            counts = self.ops.launch_counts()
+        finally:
+            mesh_lib.close_group()
+        launched = {f"repro_torch::{k}": v for k, v in counts.items() if v}
+        t_bound = max(rec["t_memory_s"], rec["t_compute_s"])
+        print(f"phase 13a: knn-lgd search_4k step (1 iteration) at n={x.shape[0]} B={B}, planned in "
+              f"{t_plan:.3f} s: planned peak {low.peak_bytes / 2**30:.4f} GiB (arguments "
+              f"{low.arg_bytes / 2**30:.4f} GiB) vs measured {peak / 2**30:.4f} GiB, ratio "
+              f"{low.peak_bytes / peak:.4f}; planned kernel calls {json.dumps(low.kernels)} vs "
+              f"launched {json.dumps(launched)}; planned {rec['hlo_gflops']:.6f} GFLOP "
+              f"({rec['gflops_fp32']:.6f} fp32) and {rec['hlo_gbytes']:.6f} GB, bound "
+              f"{t_bound * 1e3:.6f} ms vs the step's {ms:.3f} ms", flush=True)
+        check(low.kernels == launched, f"phase 13a: planned kernel calls {low.kernels} != "
+              f"launched {launched}")
+        check(abs(low.peak_bytes / peak - 1.0) <= 0.25,
+              f"phase 13a: planned peak {low.peak_bytes} is more than 25% from measured {peak}")
+        self.dryrun_rec = {"knn_planned_peak": low.peak_bytes, "knn_measured_peak": peak}
+
+        # (b) gemma3-1b decode_32k at batch 2: planned, then one step on the card
+        from repro_torch.configs import gemma3_1b
+        from repro_torch.models import transformer
+
+        LB, S = 2, gemma3_1b.SHAPES["decode_32k"]["seq"]
+        _, low_lm, _, t_plan = planned("gemma3-1b", "decode_32k", (1, 1), ("data", "model"),
+                                       {"batch": LB})
+        cfg = gemma3_1b.full_config()
+        params = transformer.init_params(self.gen(LM_PARAM_SEED), cfg)
+        cache = transformer.init_cache(cfg, LB, S, device=self.dev)
+        cache["len"].fill_(S // 2)
+        tokens = torch.randint(0, cfg.vocab, (LB,), generator=self.gen(LM_DATA_SEED),
+                               device=self.dev, dtype=torch.int32)
+        lm_args = sum(t.numel() * t.element_size()
+                      for t in (*params.values(), *cache.values(), tokens))
+        with torch.no_grad():
+            peak_lm, ms_lm = measured_peak(
+                lambda: transformer.decode_step(params, cache, tokens, cfg)[0], lm_args)
+        print(f"phase 13b: gemma3-1b decode_32k step at batch {LB} (dense cache of {S}), planned "
+              f"in {t_plan:.3f} s: planned peak {low_lm.peak_bytes / 2**30:.4f} GiB (arguments "
+              f"{low_lm.arg_bytes / 2**30:.4f} GiB) vs measured {peak_lm / 2**30:.4f} GiB, ratio "
+              f"{low_lm.peak_bytes / peak_lm:.4f}; the step took {ms_lm:.3f} ms", flush=True)
+        self.dryrun_rec.update(lm_planned_peak=low_lm.peak_bytes, lm_measured_peak=peak_lm)
+        del params, cache
+        torch.cuda.empty_cache()
 
     def kernel_records(self):
         out = []

@@ -210,10 +210,14 @@ def commit_wave(
         after = slots_k > j_star[:, None]
         # Rule 2: λ(q) = #{j ranked before q : D(q, x_j) < m(q, v)}
         lam_q = (occludes & before).sum(dim=1).to(torch.int32)
-        ins_rows = safe_v[inserted]
-        m_lam.index_put_((ins_rows, j_star[inserted]), lam_q[inserted], accumulate=True)
+        # the λ updates add over whole tensors: an edge that was not inserted
+        # adds 0, at a row of its own lane (spread, so the zeros contend for
+        # no one atomic), so no shape depends on the data and the integer sums
+        # are those of the inserted edges alone
+        ins_rows = torch.where(inserted, safe_v, lane_flat.long() % cap)
+        m_lam.index_put_((ins_rows, j_star), torch.where(inserted, lam_q, 0), accumulate=True)
         # Rule 3: λ(x_j) += 1 for j ranked after q with D(q, x_j) < m(q, v)
-        add3 = (occludes & after).to(torch.int32)[inserted]
+        add3 = (occludes & after & inserted[:, None]).to(torch.int32)
         m_lam.index_put_(
             (ins_rows[:, None].expand_as(add3), slots_k.expand_as(add3)), add3,
             accumulate=True,
@@ -223,14 +227,15 @@ def commit_wave(
     # padding lanes are dropped, never clamped onto the real last row; the
     # merge's outputs are fresh tensors, written in place, the input graph's
     # caches are copied first
-    real = q_ids[q_mask].long()
+    # the real lanes are the first n_real, rows [q_start, q_start + n_real)
+    real = q_ids[:n_real].long()
     nbr_ids, nbr_dist, nbr_lam = m_ids, m_dist, m_lam
-    nbr_ids[real] = new_ids[q_mask]
-    nbr_dist[real] = new_dist[q_mask]
+    nbr_ids[real] = new_ids[:n_real]
+    nbr_dist[real] = new_dist[:n_real]
     nbr_lam[real] = 0  # λ starts at 0 on join (Alg. 3)
     sq_norms, row_scale, alive = g.sq_norms.clone(), g.row_scale.clone(), g.alive.clone()
-    sq_norms[real] = xq_sq[q_mask]
-    row_scale[real] = xq_sc[q_mask]
+    sq_norms[real] = xq_sq[:n_real]
+    row_scale[real] = xq_sc[:n_real]
     alive[real] = True
 
     # ---- 5. reverse-list appends --------------------------------------------
@@ -286,11 +291,9 @@ def wave_core(
     randomly for this wave.  Returns (graph, stats, coarse), coarse None
     when none was given."""
     W = cfg.wave
-    n = x.shape[0]
     if n_real is None:
-        n_real = min(W, n - pos)
-    lanes = torch.arange(W, device=x.device)
-    q = x[(pos + lanes).clamp_max(n - 1)]
+        n_real = min(W, x.shape[0] - pos)
+    q = wave_queries(x, pos, W)
     scfg = cfg.search_config()
     if coarse is None and scfg.seed_mode == "coarse":
         scfg = dataclasses.replace(scfg, seed_mode="random")
@@ -298,6 +301,31 @@ def wave_core(
         g, x, q, scfg, seeds=seeds, enc=enc, coarse=coarse, coarse_seeds=coarse_seeds,
         device=x.device,
     )
+    g2, stats2, res = finish_wave(g, x, pos, n_real, res, stats, cfg)
+    if coarse is None:
+        return g2, stats2, None
+    from repro_torch.core import hierarchy  # late: hierarchy imports construct
+
+    lanes = torch.arange(W, device=x.device)
+    rows = torch.where(lanes < n_real, pos + lanes, -1).to(torch.int32)
+    return g2, stats2, hierarchy.note_inserted(coarse, rows, res.seed_cell)
+
+
+def wave_queries(x: torch.Tensor, pos: int, W: int) -> torch.Tensor:
+    """The (W, d) query rows of the wave at ``pos``; lanes past the last
+    row of ``x`` repeat it."""
+    lanes = torch.arange(W, device=x.device)
+    return x[(pos + lanes).clamp_max(x.shape[0] - 1)]
+
+
+def finish_wave(g: KNNGraph, x: torch.Tensor, pos: int, n_real: int,
+                res: search_lib.SearchResult, stats: BuildStats, cfg: BuildConfig):
+    """A wave after its searches: the padding lanes' comparisons dropped,
+    the wave committed, its comparisons (the intra-wave tile's pairs too)
+    and inserted edges folded into ``stats``.  Returns (graph, stats, the
+    result as charged)."""
+    W = res.ids.shape[0]
+    lanes = torch.arange(W, device=x.device)
     res = res._replace(n_comps=torch.where(lanes < n_real, res.n_comps, 0))
     g2, edges = commit_wave(g, x, pos, n_real, res, cfg)
     comps = res.n_comps.sum()
@@ -308,12 +336,7 @@ def wave_core(
         n_waves=stats.n_waves + 1,
         n_inserted_edges=stats.n_inserted_edges + edges,
     )
-    if coarse is None:
-        return g2, stats2, None
-    from repro_torch.core import hierarchy  # late: hierarchy imports construct
-
-    rows = torch.where(lanes < n_real, pos + lanes, -1).to(torch.int32)
-    return g2, stats2, hierarchy.note_inserted(coarse, rows, res.seed_cell)
+    return g2, stats2, res
 
 
 def build(

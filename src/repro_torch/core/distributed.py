@@ -172,19 +172,28 @@ def make_distributed_search(group, scfg: search_lib.SearchConfig):
     scfg = dataclasses.replace(scfg, seed_mode="random")
 
     def search(g: KNNGraph, x: torch.Tensor, q: torch.Tensor, draws: Draws):
-        B, k = q.shape[0], scfg.k
+        B = q.shape[0]
         seeds = search_entry(draws.fold_in(rank), B, scfg.n_seeds, g.n_valid, device=x.device)
         res = search_lib.search(g, x, q, scfg, seeds=seeds, device=x.device)
-        gids = torch.where(res.ids >= 0, res.ids + rank * x.shape[0], -1)
-        all_ids = all_gather(gids, group)  # (P, B, k)
-        all_d = all_gather(res.dists, group)
-        P = all_ids.shape[0]
-        cat_i = all_ids.permute(1, 0, 2).reshape(B, P * k)
-        cat_d = all_d.permute(1, 0, 2).reshape(B, P * k)
-        d, i = ops.topk_smallest(cat_d, cat_i, k)
-        return i, d
+        return merge_shard_results(res, rank, x.shape[0], group)
 
     return search
+
+
+def merge_shard_results(res: search_lib.SearchResult, rank: int, n_local: int, group):
+    """The scatter-gather merge of a shard's local search result: local ids
+    map to ``rank * n_local + local``, one all-gather of the (P, B, k) ids
+    and distances, and the same stable top-k (ties to the lower shard) on
+    every rank.  Returns (ids (B, k) global, dists (B, k))."""
+    B, k = res.ids.shape
+    gids = torch.where(res.ids >= 0, res.ids + rank * n_local, -1)
+    all_ids = all_gather(gids, group)  # (P, B, k)
+    all_d = all_gather(res.dists, group)
+    P = all_ids.shape[0]
+    cat_i = all_ids.permute(1, 0, 2).reshape(B, P * k)
+    cat_d = all_d.permute(1, 0, 2).reshape(B, P * k)
+    d, i = ops.topk_smallest(cat_d, cat_i, k)
+    return i, d
 
 
 def init_sharded_state(group, x: torch.Tensor, cfg: construct_lib.BuildConfig, *, device=None):

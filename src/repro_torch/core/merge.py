@@ -150,11 +150,8 @@ def append_reverse(
     cnt_e = torch.where(sm < cap, counts[srow], 0)
     ok = (sm < cap) & (rank >= cnt_e - R)
     slot = (rev_ptr[srow] + rank) % R
-    rows, cols = sm[ok].long(), slot[ok].long()
-    rev_ids = rev_ids.clone()
-    rev_lam = rev_lam.clone()
-    rev_ids[rows, cols] = so[ok].to(torch.int32)
-    rev_lam[rows, cols] = sl[ok]
+    rev_ids = segments.scatter_rows(rev_ids, sm, slot, so, ok)
+    rev_lam = segments.scatter_rows(rev_lam, sm, slot, sl, ok)
     return rev_ids, rev_lam, rev_ptr + counts
 
 

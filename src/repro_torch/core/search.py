@@ -348,6 +348,11 @@ def search(
         if bool(st.done.all()):  # the loop's one host read
             break
         st = step(g, x, q, st, cfg, enc)
+    return result(st, cfg)
+
+
+def result(st: SearchState, cfg: SearchConfig) -> SearchResult:
+    """The search's result from its state after the last iteration."""
     return SearchResult(
         ids=st.beam_ids[:, : cfg.k],
         dists=st.beam_dist[:, : cfg.k],

@@ -4,6 +4,12 @@ Key columns are sorted ascending by the caller (stable sorts only); padding
 entries carry a sentinel key >= num_segments so they sort to the tail.
 Scatters write only entries whose destination is unique, so no result
 depends on the order a device resolves duplicate indices in.
+
+Every shape here follows from the input shapes alone, never from the data:
+entries that are not written go to an extra dump row that is sliced off
+(``scatter_rows``), the reference's ``mode="drop"``.  So these functions
+never read a value back to the host, and they trace under
+``FakeTensorMode`` (the dry run's ``configs.cells``).
 """
 
 from __future__ import annotations
@@ -30,10 +36,28 @@ def segment_rank(sorted_keys: torch.Tensor) -> torch.Tensor:
 
 
 def segment_counts(sorted_keys: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """(num_segments,) occurrence count per key; keys >= num_segments dropped."""
-    valid = sorted_keys < num_segments
-    counts = torch.bincount(sorted_keys[valid].long(), minlength=num_segments)
+    """(num_segments,) occurrence count per key; keys >= num_segments dropped
+    (counted in a dump slot that is sliced off)."""
+    slot = sorted_keys.clamp_max(num_segments).long()
+    counts = slot.new_zeros(num_segments + 1).scatter_add(0, slot, torch.ones_like(slot))
     return counts[:num_segments].to(torch.int32)
+
+
+def scatter_rows(
+    buf: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, values: torch.Tensor,
+    ok: torch.Tensor,
+) -> torch.Tensor:
+    """``buf[rows[ok], cols[ok]] = values[ok]`` on whole tensors: a new
+    (N, r) tensor, ``buf`` untouched.  Entries that fail ``ok`` write into
+    an extra dump row that is sliced off, so the written destinations must
+    be unique and the others may be anything."""
+    n = buf.shape[0]
+    out = torch.cat([buf, buf.new_empty((1,) + tuple(buf.shape[1:]))])
+    out.index_put_(
+        (torch.where(ok, rows.long(), n), torch.where(ok, cols.long(), 0)),
+        values.to(buf.dtype),
+    )
+    return out[:n]
 
 
 def mask_row_duplicates(ids: torch.Tensor) -> torch.Tensor:
@@ -60,13 +84,8 @@ def grouped_top_r(
     """
     rank = segment_rank(sorted_keys)
     ok = (sorted_keys < num_segments) & (rank < r)
-    row = sorted_keys[ok].long()
-    col = rank[ok].long()
-    buffers = []
-    for payload, fill in zip(payloads, fills):
-        buf = torch.full(
-            (num_segments, r), fill, dtype=payload.dtype, device=payload.device
-        )
-        buf[row, col] = payload[ok]
-        buffers.append(buf)
+    buffers = [
+        scatter_rows(payload.new_full((num_segments, r), fill), sorted_keys, rank, payload, ok)
+        for payload, fill in zip(payloads, fills)
+    ]
     return buffers, segment_counts(sorted_keys, num_segments)

@@ -15,6 +15,16 @@ libraries are loaded with ``ctypes``: pointers and the stream are passed as
 ``build()`` compiles several libraries at once (one ``nvcc`` process per
 source, all started together); ``chip_smoke.py`` calls it before its first
 phase.  Nothing is compiled or loaded when this module is imported.
+
+Each kernel's launcher is also a registered operator, ``repro_torch::<name>``
+(``register_op``): its CUDA implementation is the launcher itself, and its
+fake form gives outputs of the kernel's shapes and dtypes and touches no
+data, so a program that calls the kernels traces under ``FakeTensorMode``
+(the dry run, ``configs.cells``).  The fake form runs only under a fake
+mode; a real CUDA tensor always reaches the launcher.  Each kernel module
+keeps a cost function beside its operator (``COSTS``), the FLOPs and bytes
+a call costs from its shapes alone, which the dry run's accounting charges
+in place of the operations inside the kernel.
 """
 
 from __future__ import annotations
@@ -56,6 +66,38 @@ TABLE_DTYPES = {
 }
 
 _loaded: dict = {}
+
+# operator name -> cost(*args) of the registered kernels (``register_op``)
+COSTS: dict = {}
+
+# The operators are defined through a ``torch.library.Library``, with plain
+# implementations per dispatch key: ``torch.library.custom_op``'s Python
+# wrapper costs host time on every launch, which the host-bound EHC loop
+# pays once per expansion (PERF.md compares the two on the card)
+_LIB = torch.library.Library("repro_torch", "DEF")
+
+
+def register_op(name: str, schema: str, real, fake, cost):
+    """Define ``repro_torch::<name>`` by ``schema`` (writes declared in it,
+    ``Tensor(a!)``): ``real``, the kernel's launcher, implements it for CUDA
+    tensors and for CPU ones (which it refuses), ``fake`` for the Meta key,
+    which fake tensors run; ``cost(*args)`` gives the FLOPs and bytes of one
+    call (``kernel_cost``).  Returns the operator."""
+    _LIB.define(name + schema)
+    for key in ("CUDA", "CPU"):
+        _LIB.impl(name, real, key)
+    _LIB.impl(name, fake, "Meta")
+    packet = getattr(torch.ops.repro_torch, name)
+    COSTS[packet.default] = cost
+    return packet.default
+
+
+def kernel_cost(flops: float, dtype: torch.dtype, bytes_read: float, bytes_written: float) -> dict:
+    """One kernel call's cost as the dry run's accounting reads it: FLOPs
+    charged at the peak of ``dtype`` (the type the kernel computes in),
+    bytes read and written once each."""
+    return {"flops": {dtype: float(flops)}, "bytes_read": float(bytes_read),
+            "bytes_written": float(bytes_written)}
 
 
 def reset_launches() -> None:

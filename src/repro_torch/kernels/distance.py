@@ -61,7 +61,14 @@ def pairwise_distance(
     operands bfloat16 (counted as ``pairwise_distance.bf16``, and the
     tensor-core form also as ``pairwise_distance.bf16_wgmma``) or else
     widened to float32.  CUDA tensors only; a form that fails to build or
-    launch raises, and nothing falls back to another."""
+    launch raises, and nothing falls back to another.  Runs through the
+    registered operator ``repro_torch::pairwise_distance``."""
+    return PAIRWISE_OP(q, x, x_sq_norms, metric)
+
+
+def _launch(q: torch.Tensor, x: torch.Tensor, x_sq_norms: Optional[torch.Tensor],
+            metric: str) -> torch.Tensor:
+    """The operator's CUDA implementation: choose the form, launch it."""
     if metric == "cosine":
         q, x = metrics.normalize_rows(q), metrics.normalize_rows(x)
     if q.dtype == x.dtype == torch.bfloat16:
@@ -107,3 +114,27 @@ def _pairwise_wgmma(q, x, metric, x_sq_norms):
         _cuda.ptr(q), _cuda.ptr(x), _cuda.ptr(xn), _cuda.ptr(out), m, n, d, KERNEL_METRIC[metric],
     )
     return out
+
+
+def _fake(q, x, x_sq_norms, metric):
+    return q.new_empty((q.shape[0], x.shape[0]), dtype=torch.float32)
+
+
+def cost(q, x, x_sq_norms, metric) -> dict:
+    """One call from its shapes: 2·m·n·d FLOPs (the tile's products and
+    sums; the norm epilogue is not counted), charged at bf16 for the
+    tensor-core form (two bf16 operands under l2 or ip at d % 8 == 0, rows
+    taken as aligned) and at fp32 otherwise; both operands, the norm cache
+    and the (m, n) float32 result each move once."""
+    (m, d), n = q.shape, x.shape[0]
+    bf16 = q.dtype == x.dtype == torch.bfloat16 and bf16_form(metric, d, True) == "wgmma"
+    read = m * d * q.element_size() + n * d * x.element_size()
+    if metric == "l2" and x_sq_norms is not None:
+        read += n * 4
+    return _cuda.kernel_cost(2.0 * m * n * d, torch.bfloat16 if bf16 else torch.float32,
+                             read, m * n * 4)
+
+
+PAIRWISE_OP = _cuda.register_op(
+    "pairwise_distance", "(Tensor q, Tensor x, Tensor? x_sq_norms, str metric) -> Tensor",
+    _launch, _fake, cost)

@@ -35,7 +35,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import segments
 from repro_torch.kernels import _cuda, ref
+from repro_torch.kernels import gather_dist as _gather
 from repro_torch.kernels.gather_dist import KERNEL_METRIC, kernel_operands
 from repro_torch.kernels.precision import EncodedData
 
@@ -100,14 +102,21 @@ def record(
     slot: torch.Tensor,
 ) -> None:
     """Write (ids, dists) where ``do_ins`` into their slots, in place.  Of the
-    entries sharing a slot in one row, the last in column order wins."""
-    C = ids.shape[1]
+    entries sharing a slot in one row, the last in column order wins.  The
+    write is a whole-tensor scatter (``segments.scatter_rows``), so no shape
+    depends on the data."""
+    B, C = ids.shape
+    H = vis_ids.shape[1]
     later = torch.triu(torch.ones(C, C, dtype=torch.bool, device=ids.device), 1)
     same = (slot[:, :, None] == slot[:, None, :]) & do_ins[:, None, :] & later
     win = do_ins & ~same.any(dim=2)
-    rows = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)
-    vis_ids[rows[win], slot[win]] = ids[win].to(vis_ids.dtype)
-    vis_dist[rows[win], slot[win]] = dists[win]
+    flat = torch.arange(B, device=ids.device)[:, None] * H + slot
+    zero = torch.zeros_like(flat)
+    for table, values in ((vis_ids, ids), (vis_dist, dists)):
+        written = segments.scatter_rows(
+            table.reshape(-1, 1), flat.reshape(-1), zero.reshape(-1), values.reshape(-1),
+            win.reshape(-1))
+        table.copy_(written.reshape(B, H))
 
 
 def dedupe_beam(ids, dist, exp):
@@ -185,7 +194,21 @@ def fused_expand(
     float32 rows, or bfloat16, or int8 with its ``row_scale`` table and the
     exact ``sq_norms`` cache.  Each storage type is its own instantiation of
     the kernel, counted under its own name (``fused_expand``,
-    ``fused_expand.bf16``, ``fused_expand.int8``)."""
+    ``fused_expand.bf16``, ``fused_expand.int8``).  Runs through the
+    registered operator ``repro_torch::fused_expand``, which declares the
+    hash as written."""
+    if vis_ids.dtype != torch.int32 or vis_dist.dtype != torch.float32:
+        raise ValueError("fused_expand: the hash is (int32 ids, float32 dists)")
+    out_ids, out_dist, out_exp, comps = EXPAND_OP(
+        q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, sq_norms, row_scale,
+        metric, probes)
+    return out_ids, out_dist, out_exp, vis_ids, vis_dist, comps
+
+
+def _launch(q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, sq_norms,
+            row_scale, metric, probes):
+    """The operator's CUDA implementation: launch the kernel; returns
+    (beam ids, dists, expanded flags, comps), the hash written in place."""
     code, name, scale = _cuda.table_operands("fused_expand", x, sq_norms, row_scale)
     q, sq = kernel_operands(q, x, metric, sq_norms)
     x = x.contiguous()
@@ -193,8 +216,6 @@ def fused_expand(
     beam_ids = beam_ids.to(torch.int32).contiguous()
     beam_dist = beam_dist.float().contiguous()
     beam_exp = beam_exp.to(torch.bool).contiguous()
-    if vis_ids.dtype != torch.int32 or vis_dist.dtype != torch.float32:
-        raise ValueError("fused_expand: the hash is (int32 ids, float32 dists)")
     B, C = cands.shape
     e = beam_ids.shape[1]
     H = vis_ids.shape[1]
@@ -212,4 +233,37 @@ def fused_expand(
         name, fn, x.device, *(_cuda.ptr(t) for t in tensors),
         B, C, e, H, probes, x.shape[1], KERNEL_METRIC[metric], code,
     )
-    return out_ids, out_dist, out_exp, vis_ids, vis_dist, comps
+    return out_ids, out_dist, out_exp, comps
+
+
+def _fake(q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, sq_norms,
+          row_scale, metric, probes):
+    B, e = beam_ids.shape
+    return (beam_ids.new_empty((B, e), dtype=torch.int32),
+            beam_dist.new_empty((B, e), dtype=torch.float32),
+            beam_exp.new_empty((B, e), dtype=torch.bool),
+            cands.new_empty((B,), dtype=torch.int32))
+
+
+def cost(q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, sq_norms,
+         row_scale, metric, probes) -> dict:
+    """One call from its shapes: 2·B·C·d fp32 FLOPs for the candidates'
+    distances (the hash and the beam merge are not counted as FLOPs); read
+    once each: the queries, the candidate ids, every candidate's row (no
+    dedupe), the P probed hash slots of every candidate (ids and dists) and
+    the beam; written once each: a hash slot (id and dist) per candidate,
+    the new beam and the comparison counts."""
+    (B, C), d, e = cands.shape, x.shape[1], beam_ids.shape[1]
+    beam = B * e * (4 + 4 + 1)
+    read = (B * d * 4 + B * C * 4 + B * C * _gather.row_bytes(x, metric, row_scale)
+            + B * C * probes * 8 + beam)
+    written = B * C * 8 + beam + B * 4
+    return _cuda.kernel_cost(2.0 * B * C * d, torch.float32, read, written)
+
+
+EXPAND_OP = _cuda.register_op(
+    "fused_expand",
+    "(Tensor q, Tensor x, Tensor cands, Tensor beam_ids, Tensor beam_dist, Tensor beam_exp, "
+    "Tensor(a!) vis_ids, Tensor(b!) vis_dist, Tensor? sq_norms, Tensor? row_scale, str metric, "
+    "int probes) -> (Tensor, Tensor, Tensor, Tensor)",
+    _launch, _fake, cost)

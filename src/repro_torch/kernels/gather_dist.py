@@ -62,9 +62,10 @@ def gather_distance(
 
     Each warp holds its query in shared memory, so d is at most
     ``max_width(x.device)``: the floats a CTA's shared memory may hold,
-    58,112 on an H100.  A wider d raises ``ValueError``.
+    58,112 on an H100.  A wider d raises ``ValueError``.  Runs through the
+    registered operator ``repro_torch::gather_distance``.
     """
-    return _launch("launch_gather_distance", q, x, idx, metric, sq_norms, row_scale)
+    return GATHER_OP(q, x, idx, sq_norms, row_scale, metric)
 
 
 def gather_floor(
@@ -111,3 +112,38 @@ def _launch(symbol, q, x, idx, metric, sq_norms, row_scale, *, count=True):
         _cuda.ptr(out), B, C, x.shape[1], KERNEL_METRIC[metric], code, count=count,
     )
     return out
+
+
+def _real(q, x, idx, sq_norms, row_scale, metric):
+    return _launch("launch_gather_distance", q, x, idx, metric, sq_norms, row_scale)
+
+
+def _fake(q, x, idx, sq_norms, row_scale, metric):
+    return q.new_empty(tuple(idx.shape), dtype=torch.float32)
+
+
+def row_bytes(x: torch.Tensor, metric: str, row_scale) -> int:
+    """Bytes the kernels read per candidate: its row of the table, its
+    cached norm (l2, cosine) and its int8 scale."""
+    out = x.shape[1] * x.element_size()
+    if metric in ("l2", "cosine"):
+        out += 4
+    if row_scale is not None:
+        out += 4
+    return out
+
+
+def cost(q, x, idx, sq_norms, row_scale, metric) -> dict:
+    """One call from its shapes: 2·B·C·d fp32 FLOPs (a multiply and an add
+    per element of each pair; the kernel widens every table type to fp32),
+    the queries, the ids and every candidate's row read once (no dedupe of
+    repeated ids), the (B, C) float32 result written once."""
+    (B, C), d = idx.shape, x.shape[1]
+    read = B * d * 4 + B * C * 4 + B * C * row_bytes(x, metric, row_scale)
+    return _cuda.kernel_cost(2.0 * B * C * d, torch.float32, read, B * C * 4)
+
+
+GATHER_OP = _cuda.register_op(
+    "gather_distance",
+    "(Tensor q, Tensor x, Tensor idx, Tensor? sq_norms, Tensor? row_scale, str metric) -> Tensor",
+    _real, _fake, cost)

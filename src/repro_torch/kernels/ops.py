@@ -4,8 +4,12 @@
 The tensor's device decides, and nothing else: a tensor on the CPU takes the
 plain PyTorch version; a tensor on a CUDA device takes the hand-written
 kernel, which launches or raises.  There is no engine option and no
-fallback.  Callers in ``repro_torch.core`` reach the kernels only through
-these functions, by module attribute (``ops.expand_step(...)``).  The PQ
+fallback.  The kernels are reached through their registered operators
+(``repro_torch::pairwise_distance``, ``::gather_distance``,
+``::fused_expand``), whose fake forms let the dry run trace them; the dry
+run sends its fake CPU tensors the card's way (``device.card_program``).
+Callers in ``repro_torch.core`` reach the kernels only through these
+functions, by module attribute (``ops.expand_step(...)``).  The PQ
 rank-then-rerank composes here, around the exact fp32 expansion.
 
 A metric registered with ``core.metrics.register`` has no kernel: on a CUDA
@@ -22,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import on_card
 from repro_torch.kernels import _cuda, ref
 from repro_torch.kernels import distance as _distance
 from repro_torch.kernels import expand as _expand
@@ -66,9 +71,10 @@ def pairwise_distance(
     device, as in the reference, whose Pallas pairwise kernel never takes
     one: it feeds no kernel of the main path."""
     compressed = enc is not None and precision != "fp32"
-    if x.is_cuda:
+    card = on_card(x)
+    if card:
         require_kernel_metric(metric, _distance.KERNEL_METRIC)
-    if x.is_cuda and not compressed:
+    if card and not compressed:
         return _distance.pairwise_distance(q, x, metric, x_sq_norms=x_sq_norms)
     return ref.pairwise_distance(q, x, metric, x_sq_norms=x_sq_norms, enc=enc, precision=precision)
 
@@ -89,11 +95,12 @@ def gather_distance(
     variant of the kernel (or its plain version on the CPU); ``"pq"`` is the
     plain ADC rank on either device, as in the reference (ADC has no TPU
     kernel to port)."""
-    if x.is_cuda:
+    card = on_card(x)
+    if card:
         require_kernel_metric(metric, _gather_dist.KERNEL_METRIC)
     if enc is None or precision == "fp32":
         enc, precision = None, "fp32"
-    if precision == "pq" or not x.is_cuda:
+    if precision == "pq" or not card:
         return ref.gather_distance(
             q, x, idx, metric, sq_norms=sq_norms, enc=enc, precision=precision
         )
@@ -171,7 +178,8 @@ def expand_step(
     rank-then-rerank: the fresh candidates are ranked by ADC, the best
     ``rerank_keep`` go through the exact fp32 expansion, and every fresh
     candidate counts in ``comps``."""
-    if x.is_cuda:
+    card = on_card(x)
+    if card:
         require_kernel_metric(metric, _gather_dist.KERNEL_METRIC)
     if enc is None or precision == "fp32":
         enc, precision = None, "fp32"
@@ -183,7 +191,7 @@ def expand_step(
             metric=metric, hash_probes=hash_probes, sq_norms=sq_norms, enc=enc,
             rerank_keep=rerank_keep,
         )
-    if not x.is_cuda:
+    if not card:
         return _expand.expand_reference(
             q, x, cands, beam_ids, beam_dist, beam_exp, vis_ids, vis_dist,
             metric=metric, probes=hash_probes, sq_norms=sq_norms, enc=enc, precision=precision,

@@ -26,6 +26,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import device as device_lib
+
 NEG_INF = -1e30
 
 
@@ -51,7 +53,7 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     tensor per layer.  That call has no derivative, so a product that takes
     part in a gradient widens its operands on the card too."""
     dt = acc_dtype(a, b)
-    if (a.is_cuda and a.dtype == b.dtype == torch.bfloat16
+    if (device_lib.on_card(a) and a.dtype == b.dtype == torch.bfloat16
             and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))):
         batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
         a3 = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])

@@ -124,6 +124,14 @@ def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, act: str = "relu
 # ---------------------------------------------------------------------------
 
 
+def _vocab_sharded(logits: torch.Tensor) -> bool:
+    """Whether ``logits`` is a DTensor split over its last dimension."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(logits, DTensor) and any(
+        p.is_shard(logits.dim() - 1) for p in logits.placements)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
                  z_loss: float = 0.0) -> torch.Tensor:
     """Token-level cross entropy in fp32; labels < 0 are masked (padding)."""
@@ -131,7 +139,15 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
     mask = labels >= 0
     safe = labels.clamp(0, logits.shape[-1] - 1).long()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if _vocab_sharded(logits):
+        # each rank sums its block of the vocabulary and one all-reduce adds
+        # the blocks; the one nonzero term makes it the gathered value
+        # (DTensor's gather over a sharded dimension leaves a masked partial
+        # that fake tensors cannot run)
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        ll = torch.where(vocab == safe[..., None], logits, 0.0).sum(-1)
+    else:
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse ** 2

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import common
+from repro_torch.models import common, sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +48,11 @@ def lookup(table: torch.Tensor, ids: torch.Tensor,
     if cfg is not None:
         ids = torch.where(ids >= 0, _resolve_ids(ids.clamp(min=0), cfg), -1)
     valid = ids >= 0
-    out = table.index_select(0, ids.clamp(min=0).reshape(-1)).reshape(*ids.shape, table.shape[1])
+    if sharding.row_split(table):  # a table split over ranks: each looks up its rows
+        out = sharding.gather_rows(table, ids.clamp(min=0))
+    else:
+        out = table.index_select(0, ids.clamp(min=0).reshape(-1)).reshape(
+            *ids.shape, table.shape[1])
     return torch.where(valid[..., None], out, out.new_zeros(()))
 
 

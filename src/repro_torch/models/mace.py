@@ -32,8 +32,9 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models import common
+from repro_torch.models import common, sharding
 
 Params = Dict[str, torch.Tensor]
 
@@ -207,6 +208,8 @@ def _product_basis(a0: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor, correla
 
 
 def _segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    if isinstance(data, DTensor):  # edges split over ranks: a pending sum over them
+        return sharding.index_add_rows(data, ids, n)
     out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device)
     return out.index_add(0, ids, data)
 

@@ -21,10 +21,11 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import segments
-from repro_torch.models import common
-from repro_torch.models.sharding import constrain
+from repro_torch.models import common, sharding
+from repro_torch.models.sharding import batch_axes, constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,35 @@ def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.to(dt), b.to(dt))
 
 
+def _rank_groups(params, x: DTensor, groups: int, cfg: MoEConfig, act: str, capacity):
+    """``groups`` contiguous token groups of the DTensor ``x`` (T, d), split
+    over the data axes and whole over the others (the reference's
+    ``constrain(..., "batch", None, None)``; one group: whole everywhere),
+    each rank dispatching its own groups (the reference's shard-local
+    ``vmap``).  A rank's group runs as a DTensor replicated over the mesh:
+    its value differs between data ranks while the program does not.  The
+    outputs and the aux values come back split over the data axes, the aux
+    means taken over every group."""
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    rep = [Replicate()] * len(names)
+    rows = [Shard(0) if groups > 1 and n in batch_axes(mesh) else Replicate() for n in names]
+    T, d = x.shape
+    local = x.redistribute(mesh, rows).to_local()
+    outs, auxs = [], []
+    for xx in local.reshape(-1, T // groups, d):
+        o, a = _dispatch(params, DTensor.from_local(xx, mesh, rep, run_check=False), cfg,
+                         act, capacity)
+        outs.append(o.redistribute(mesh, rep).to_local())
+        auxs.append({k: v.redistribute(mesh, rep).to_local() for k, v in a.items()})
+    out = DTensor.from_local(torch.stack(outs).reshape(-1, d), mesh, rows, run_check=False,
+                             shape=x.shape, stride=(d, 1))
+    aux = {k: DTensor.from_local(torch.stack([a[k] for a in auxs]), mesh, rows, run_check=False,
+                                 shape=torch.Size((groups,)), stride=(1,)).mean()
+           for k in auxs[0]}
+    return out, aux
+
+
 def apply_moe(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (T, d) — flattened tokens
@@ -72,11 +102,20 @@ def apply_moe(
     is constrained over the data axes (the identity off a mesh).
     """
     T, d = x.shape
-    if groups > 1 and T % groups == 0 and T // groups >= 8:
+    grouped = groups > 1 and T % groups == 0 and T // groups >= 8
+    if isinstance(x, DTensor):
+        return _rank_groups(params, x, groups if grouped else 1, cfg, act, capacity)
+    if grouped:
         xg = constrain(x.reshape(groups, T // groups, d), "batch", None, None)
         outs, auxs = zip(*(apply_moe(params, xx, cfg, act=act, capacity=capacity) for xx in xg))
         out = constrain(torch.stack(outs), "batch", None, None).reshape(T, d)
         return out, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    return _dispatch(params, x, cfg, act, capacity)
+
+
+def _dispatch(params, x: torch.Tensor, cfg: MoEConfig, act: str, capacity: Optional[int]):
+    """One group's routing, dispatch, expert GEMMs and scatter back."""
+    T, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     if capacity is None:
         capacity = int(cfg.capacity_factor * T * K / E)
@@ -116,8 +155,11 @@ def apply_moe(
     # to zero: with top_k = 2, 0 + a + b equals 0 + b + a exactly, so the
     # order the card's atomics add in changes no bit.
     ye = ye * buf_gate[..., None].to(ye.dtype)
-    out = torch.zeros((T + 1, d), dtype=ye.dtype, device=x.device)
-    out = out.index_add(0, buf_tok.reshape(-1), ye.reshape(-1, d))[:T]
+    if isinstance(ye, DTensor):
+        out = sharding.index_add_rows(ye.reshape(-1, d), buf_tok.reshape(-1), T + 1)[:T]
+    else:
+        out = torch.zeros((T + 1, d), dtype=ye.dtype, device=x.device)
+        out = out.index_add(0, buf_tok.reshape(-1), ye.reshape(-1, d))[:T]
 
     # ---- aux load-balancing loss (Switch eq. 4-6) ---------------------------
     # fraction of tokens routed to e (top-1 assignment) * mean router prob

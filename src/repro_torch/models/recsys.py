@@ -37,7 +37,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import common, embedding
+from repro_torch.models import common, embedding, sharding
 
 Params = Dict[str, object]
 RoutingInit = Callable[[int, int], torch.Tensor]
@@ -164,7 +164,10 @@ def row_slices(n: int, chunk: int) -> list:
 
 
 def _by_rows(fn, chunk: int, *tensors: torch.Tensor) -> torch.Tensor:
-    """fn over row slices of ``tensors``, concatenated."""
+    """fn over row slices of ``tensors``, concatenated; rows split over a
+    mesh (DTensors) are sliced on each rank, over its own rows."""
+    if sharding.row_split(tensors[0]):
+        return sharding.map_rank_rows(lambda *ts: _by_rows(fn, chunk, *ts), *tensors)
     slices = row_slices(tensors[0].shape[0], chunk)
     if len(slices) == 1:
         return fn(*tensors)

@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as device_lib
 from repro_torch.models import attention, common
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import sharding
 from repro_torch.models.sharding import constrain
 from repro_torch.models.attention import ring_decode_attention  # noqa: F401  (the reference's home)
 
@@ -303,6 +304,8 @@ def _embed(rest, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     cd = _dtype(cfg.compute_dtype)
     emb = rest["embed"]
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=emb.device)
+    if sharding.row_split(emb):  # the vocabulary split over ranks
+        return sharding.gather_rows(emb, tokens.long()).to(cd) * scale
     return emb[tokens.long()].to(cd) * scale
 
 
@@ -450,12 +453,13 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig):
     h = constrain(_embed(rest, tokens, cfg), "batch", None, None)
     rope = _rope(torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S), cfg)
     wins = cfg.window_by_layer()
-    shape = (cfg.n_layers, B, S, KV, dh)
-    kc = torch.empty(shape, dtype=torch.bfloat16, device=h.device)
-    vc = torch.empty(shape, dtype=torch.bfloat16, device=h.device)
+    kc = vc = None  # (L, B, S, KV, dh), laid out as the first layer's K/V
     body = _layer(cfg)
     for li in range(cfg.n_layers):
         h, _, k, v = body(h, _unrolled_slice(layer_params, li, cfg), int(wins[li]), *rope)
+        if kc is None:
+            kc = sharding.empty_stack(cfg.n_layers, k, torch.bfloat16)
+            vc = sharding.empty_stack(cfg.n_layers, v, torch.bfloat16)
         kc[li], vc[li] = k, v
     hl = common.rms_norm(h[:, -1], rest["ln_f"], cfg.norm_eps)
     logits = _softcap((hl @ _head(rest, cfg, hl.dtype)).to(torch.float32), cfg)
@@ -533,7 +537,6 @@ def decode_step_split(params, cache, tokens: torch.Tensor, cfg: TransformerConfi
     """
     if "k_loc" not in cache:  # all-global config: plain dense path
         return decode_step(params, cache, tokens, cfg)
-    B = tokens.shape[0]
     layer_params, rest = _split_layer_params(params)
     h = _embed(rest, tokens, cfg)[:, None, :]
     ln = cache["len"]
@@ -547,7 +550,6 @@ def decode_step_split(params, cache, tokens: torch.Tensor, cfg: TransformerConfi
             loc_map[i] = len(loc_map)
         else:
             glob_map[i] = len(glob_map)
-    bidx = torch.arange(B, device=h.device)
     slot = torch.remainder(ln, W).long()
     for li in range(cfg.n_layers):
         if li in loc_map:
@@ -558,8 +560,8 @@ def decode_step_split(params, cache, tokens: torch.Tensor, cfg: TransformerConfi
             fn = attention.decode_attention
 
         def attend(q, k, v, kc=kc, vc=vc, at=at, fn=fn, w=int(wins[li])):
-            kc[bidx, at] = k[:, 0].to(kc.dtype)
-            vc[bidx, at] = v[:, 0].to(vc.dtype)
+            sharding.write_rows(kc, at, k[:, 0].to(kc.dtype))
+            sharding.write_rows(vc, at, v[:, 0].to(vc.dtype))
             return fn(q, kc, vc, ln, w)
 
         lp = _use_constrain_layer(_layer_slice(layer_params, li), cfg)
@@ -578,20 +580,18 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: TransformerConfig):
     and those tensors come back with ``len + 1``.  The MoE FFN runs with the
     default activation here, as in the reference.
     """
-    B = tokens.shape[0]
     layer_params, rest = _split_layer_params(params)
     h = _embed(rest, tokens, cfg)[:, None, :]
     ln = cache["len"]
     rope = _rope(ln[:, None], cfg)
     wins = cfg.window_by_layer()
-    bidx = torch.arange(B, device=h.device)
     at = ln.long()
     for li in range(cfg.n_layers):
         kc, vc = cache["k"][li], cache["v"][li]
 
         def attend(q, k, v, kc=kc, vc=vc, w=int(wins[li])):
-            kc[bidx, at] = k[:, 0].to(kc.dtype)
-            vc[bidx, at] = v[:, 0].to(vc.dtype)
+            sharding.write_rows(kc, at, k[:, 0].to(kc.dtype))
+            sharding.write_rows(vc, at, v[:, 0].to(vc.dtype))
             return attention.decode_attention(q, kc, vc, ln, w)
 
         h = _decode_layer(h, _unrolled_slice(layer_params, li, cfg), cfg, rope, attend, "silu")

@@ -954,3 +954,34 @@ def test_registered_metric_refused_before_any_launch(card):
         assert not any(ops.launch_counts().values())
     finally:
         del metrics._REGISTRY["linf_card"]
+
+
+def _op_args(dev, B=6, C=5, d=16, n=40, H=64, e=4):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(n, d, generator=g)
+    q = torch.randn(B, d, generator=g)
+    idx = torch.randint(-1, n, (B, C), generator=g, dtype=torch.int32)
+    beam = [torch.randint(0, n, (B, e), generator=g, dtype=torch.int32),
+            torch.rand(B, e, generator=g), torch.zeros(B, e, dtype=torch.bool)]
+    hashes = [torch.full((B, H), -1, dtype=torch.int32), torch.full((B, H), float("inf"))]
+    return q.to(dev), x.to(dev), idx.to(dev), [t.to(dev) for t in beam], [t.to(dev) for t in hashes]
+
+
+def test_registered_ops_pass_opcheck(card):
+    """The three kernels' registered operators (schema, fake form, the
+    declared writes of ``fused_expand``'s hash) at one small shape each."""
+    q, x, idx, beam, hashes = _op_args(card)
+    sq = (x * x).sum(1)
+    torch.library.opcheck(distance.PAIRWISE_OP, (q, x, sq, "l2"))
+    torch.library.opcheck(gather_dist.GATHER_OP, (q, x, idx, sq, None, "l2"))
+    torch.library.opcheck(expand.EXPAND_OP, (q, x, idx, *beam, *hashes, sq, None, "l2", 8))
+
+
+def test_launch_counts_count_through_the_registered_ops(card):
+    q, x, idx, beam, hashes = _op_args(card)
+    ops.reset_launch_counts()
+    ops.pairwise_distance(q, x)
+    ops.gather_distance(q, x, idx)
+    ops.expand_step(q, x, idx, *beam, *hashes)
+    counts = ops.launch_counts()
+    assert counts["pairwise_distance"] == counts["gather_distance"] == counts["fused_expand"] == 1

@@ -48,8 +48,8 @@ def test_no_jax_or_reference_package_in_sys_modules():
 def test_isolation_check_covers_every_module():
     """The subprocess above imports every module of the package, the mesh,
     checkpoint, distributed, build-variant and recommender modules among
-    them, the training and GNN modules, the LM modules and configs, and
-    placement."""
+    them, the training and GNN modules, the LM modules and configs,
+    placement, and the dry run's cells, roofline, dryrun and perf."""
     mods = _modules()
     for name in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
                  "repro_torch.train.checkpoint", "repro_torch.configs.knn_olg",
@@ -68,7 +68,9 @@ def test_isolation_check_covers_every_module():
                  "repro_torch.configs.gemma3_1b", "repro_torch.configs.stablelm_1_6b",
                  "repro_torch.configs.qwen2_5_3b", "repro_torch.configs.mixtral_8x7b",
                  "repro_torch.configs.arctic_480b", "repro_torch.models.sharding",
-                 "repro_torch.launch.placement"):
+                 "repro_torch.launch.placement", "repro_torch.configs.cells",
+                 "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.perf"):
         assert name in mods, name
 
 
