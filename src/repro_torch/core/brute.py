@@ -3,7 +3,10 @@
 Ground truth for recall@k (Eq. 1), the exact seed graph over the first
 |I| = 256 rows (Alg. 2 lines 4-6), and the exhaustive baseline.  The x side
 is walked in tiles with a running top-k, each tile one ``pairwise_distance``
-call, so the (m, n) matrix never materializes.
+call, so the (m, n) matrix never materializes.  With a tracker (``obs``)
+each tile is a ``brute/tile`` span with the children ``brute/pairwise``
+(the tile's distances) and ``brute/topk`` (mask, concatenation and the
+running top-k); none of them waits for the card.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.kernels import ops, ref
+from repro_torch.obs import NOOP
 
 
 def brute_force_knn(
@@ -29,6 +33,7 @@ def brute_force_knn(
     tile: int = 8192,
     sq_norms: Optional[torch.Tensor] = None,
     device=None,
+    tracker=None,
 ):
     """Exact top-k neighbours of the rows of q among the rows of x.
 
@@ -39,6 +44,7 @@ def brute_force_knn(
       alive: optional (n,) bool; dead rows take no part.
       sq_norms: optional (n,) cached ``‖x‖²``, handed to each tile.
       device: where to run; None is the card (raises without one).
+      tracker: an ``obs`` tracker for the per-tile spans (None: none).
 
     Returns ids (m, k) int32 and dists (m, k) float32, ascending; a row with
     fewer than k candidates is padded with (+inf, and the lowest-position
@@ -55,29 +61,33 @@ def brute_force_knn(
     best_d = torch.full((m, k), float("inf"), dtype=torch.float32, device=dev)
     best_i = torch.full((m, k), -1, dtype=torch.int32, device=dev)
     excl = None if exclude_ids is None else exclude_ids.to(dev)[:, None]
+    trk = tracker or NOOP
     for t in range(ntiles):
-        lo = t * tile
-        xt = x[lo:lo + tile]
-        xn_t = None if sq_norms is None else sq_norms.to(dev)[lo:lo + tile].float()
-        short = tile - xt.shape[0]
-        if short:  # the reference pads the last tile with zero rows
-            xt = torch.cat([xt, xt.new_zeros((short, xt.shape[1]))])
-            if xn_t is not None:
-                xn_t = torch.cat([xn_t, xn_t.new_zeros(short)])
-        dt = ops.pairwise_distance(q, xt, metric, x_sq_norms=xn_t)
-        ids = lo + torch.arange(tile, dtype=torch.int32, device=dev)[None, :]
-        mask = ids < n_valid
-        if alive is not None:
-            al = alive.to(dev)[lo:lo + tile]
-            if short:
-                al = torch.cat([al, al.new_zeros(short)])
-            mask = mask & al[None, :]
-        if excl is not None:
-            mask = mask & (ids != excl)
-        dt = torch.where(mask, dt, float("inf"))
-        cat_d = torch.cat([best_d, dt], dim=1)
-        cat_i = torch.cat([best_i, ids.expand(m, tile)], dim=1)
-        best_d, best_i = ref.topk_smallest(cat_d, cat_i, k)
+        with trk.span("brute/tile"):
+            lo = t * tile
+            xt = x[lo:lo + tile]
+            xn_t = None if sq_norms is None else sq_norms.to(dev)[lo:lo + tile].float()
+            short = tile - xt.shape[0]
+            if short:  # the reference pads the last tile with zero rows
+                xt = torch.cat([xt, xt.new_zeros((short, xt.shape[1]))])
+                if xn_t is not None:
+                    xn_t = torch.cat([xn_t, xn_t.new_zeros(short)])
+            with trk.span("brute/pairwise"):
+                dt = ops.pairwise_distance(q, xt, metric, x_sq_norms=xn_t)
+            with trk.span("brute/topk"):
+                ids = lo + torch.arange(tile, dtype=torch.int32, device=dev)[None, :]
+                mask = ids < n_valid
+                if alive is not None:
+                    al = alive.to(dev)[lo:lo + tile]
+                    if short:
+                        al = torch.cat([al, al.new_zeros(short)])
+                    mask = mask & al[None, :]
+                if excl is not None:
+                    mask = mask & (ids != excl)
+                dt = torch.where(mask, dt, float("inf"))
+                cat_d = torch.cat([best_d, dt], dim=1)
+                cat_i = torch.cat([best_i, ids.expand(m, tile)], dim=1)
+                best_d, best_i = ref.topk_smallest(cat_d, cat_i, k)
     return best_i, best_d
 
 

@@ -13,6 +13,12 @@ step (``kernels.ops.expand_step``).  A lane is done when its best
 unexpanded entry cannot enter its top-k; the loop stops when every lane is
 done or after ``max_iters`` iterations — one host read of the ``done`` mask
 per iteration stands in for the reference's ``lax.while_loop``.
+
+With a tracker (``obs``) the call reports ``search/init``, then per
+iteration ``search/done_read`` around that read and ``search/step`` around
+the iteration, whose children are ``search/select``, ``search/expand`` and
+``search/update``.  None of them waits for the card: the ``done`` read is
+the loop's only wait, tracker or not.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from repro_torch.core.graph import KNNGraph
 from repro_torch.kernels import expand as expand_lib
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import precision as precision_lib
+from repro_torch.obs import NOOP
 
 
 def auto_hash_slots(beam: int, max_iters: int) -> int:
@@ -168,36 +175,41 @@ def _prepare_expansion(g: KNNGraph, st: SearchState, cfg: SearchConfig):
 
 def step(
     g: KNNGraph, x: torch.Tensor, q: torch.Tensor, st: SearchState, cfg: SearchConfig,
-    enc: Optional[precision_lib.EncodedData] = None,
+    enc: Optional[precision_lib.EncodedData] = None, *, tracker=None,
 ) -> SearchState:
     """One EHC iteration for every lane (done lanes are left unchanged).
     The hash in ``st`` is updated in place; ``enc`` is the compressed table
-    matching ``cfg.precision``."""
-    cands, beam_exp = _prepare_expansion(g, st, cfg)
-    beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, comps = ops.expand_step(
-        q, x, cands, st.beam_ids, st.beam_dist, beam_exp, st.vis_ids, st.vis_dist,
-        metric=cfg.metric, hash_probes=cfg.hash_probes, sq_norms=g.sq_norms,
-        enc=enc, precision=cfg.precision, rerank_keep=cfg.rerank_factor * cfg.k,
-    )
-    fill = _hash_fill(vis_ids)
-    # every computed distance must land in the D array; a fill delta below
-    # the comparison count means an insert was dropped
-    hash_full = st.hash_full | (fill - st.fill < comps)
-    best_unexp = torch.where(beam_exp, float("inf"), beam_dist).amin(dim=1)
-    newly_done = ~(best_unexp < beam_dist[:, cfg.k - 1])
-    return SearchState(
-        beam_ids=beam_ids,
-        beam_dist=beam_dist,
-        beam_exp=beam_exp,
-        vis_ids=vis_ids,
-        vis_dist=vis_dist,
-        n_comps=st.n_comps + comps,
-        n_iters=st.n_iters + (~st.done).to(torch.int32),
-        done=st.done | newly_done,
-        hash_full=hash_full,
-        fill=fill,
-        seed_cell=st.seed_cell,
-    )
+    matching ``cfg.precision``; ``tracker`` (``obs``) gets the
+    ``search/select``, ``search/expand`` and ``search/update`` spans."""
+    trk = tracker or NOOP
+    with trk.span("search/select"):
+        cands, beam_exp = _prepare_expansion(g, st, cfg)
+    with trk.span("search/expand"):
+        beam_ids, beam_dist, beam_exp, vis_ids, vis_dist, comps = ops.expand_step(
+            q, x, cands, st.beam_ids, st.beam_dist, beam_exp, st.vis_ids, st.vis_dist,
+            metric=cfg.metric, hash_probes=cfg.hash_probes, sq_norms=g.sq_norms,
+            enc=enc, precision=cfg.precision, rerank_keep=cfg.rerank_factor * cfg.k,
+        )
+    with trk.span("search/update"):
+        fill = _hash_fill(vis_ids)
+        # every computed distance must land in the D array; a fill delta below
+        # the comparison count means an insert was dropped
+        hash_full = st.hash_full | (fill - st.fill < comps)
+        best_unexp = torch.where(beam_exp, float("inf"), beam_dist).amin(dim=1)
+        newly_done = ~(best_unexp < beam_dist[:, cfg.k - 1])
+        return SearchState(
+            beam_ids=beam_ids,
+            beam_dist=beam_dist,
+            beam_exp=beam_exp,
+            vis_ids=vis_ids,
+            vis_dist=vis_dist,
+            n_comps=st.n_comps + comps,
+            n_iters=st.n_iters + (~st.done).to(torch.int32),
+            done=st.done | newly_done,
+            hash_full=hash_full,
+            fill=fill,
+            seed_cell=st.seed_cell,
+        )
 
 
 def coarse_config(cfg: SearchConfig) -> SearchConfig:
@@ -316,6 +328,7 @@ def search(
     coarse: Any = None,
     coarse_seeds: Optional[torch.Tensor] = None,
     device=None,
+    tracker=None,
 ) -> SearchResult:
     """Batched EHC search of queries q (B, d) against graph g over x (n, d).
 
@@ -327,7 +340,7 @@ def search(
     matching ``cfg.precision`` (ignored for fp32); it is encoded from ``x``
     when absent, int8 reusing ``g.row_scale`` when it covers every row of
     ``x``.  ``device`` is where to run (None: the card, raising without
-    one)."""
+    one).  ``tracker`` (``obs``) gets the spans of the module doc."""
     dev = device_lib.resolve(device)
     g, x, q = g.to(dev), x.to(dev), q.to(dev)
     if cfg.precision != "fp32":
@@ -337,17 +350,25 @@ def search(
                 x, cfg.precision, row_scale=g.row_scale if reuse else None
             )
         enc = enc.to(dev)
-    if cfg.seed_mode == "coarse" and coarse is not None and coarse_seeds is None:
-        coarse_seeds = random_seeds(
-            q.shape[0], cfg.n_seeds, coarse.graph.n_valid, generator, dev
-        )
-    if seeds is None:
-        seeds = random_seeds(q.shape[0], cfg.n_seeds, g.n_valid, generator, dev)
-    st = init_state(g, x, q, seeds, cfg, enc, coarse=coarse, coarse_seeds=coarse_seeds)
+    trk = tracker or NOOP
+    with trk.span("search/init"):
+        if cfg.seed_mode == "coarse" and coarse is not None and coarse_seeds is None:
+            coarse_seeds = random_seeds(
+                q.shape[0], cfg.n_seeds, coarse.graph.n_valid, generator, dev
+            )
+        if seeds is None:
+            seeds = random_seeds(q.shape[0], cfg.n_seeds, g.n_valid, generator, dev)
+        st = init_state(g, x, q, seeds, cfg, enc, coarse=coarse, coarse_seeds=coarse_seeds)
+    # ``step`` gets a tracker only when the caller gave one, so a stand-in
+    # for it that takes ``step``'s six positional arguments runs untraced
+    step_kw = {} if tracker is None else {"tracker": tracker}
     for _ in range(cfg.max_iters):
-        if bool(st.done.all()):  # the loop's one host read
+        with trk.span("search/done_read"):
+            done = bool(st.done.all())  # the loop's one host read
+        if done:
             break
-        st = step(g, x, q, st, cfg, enc)
+        with trk.span("search/step"):
+            st = step(g, x, q, st, cfg, enc, **step_kw)
     return result(st, cfg)
 
 

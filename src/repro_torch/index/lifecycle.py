@@ -342,25 +342,28 @@ class OnlineIndex:
     ) -> search_lib.SearchResult:
         """EHC search of (B, d) queries (flushes buffered adds first).
         Entry points from ``seed_fn(B, n_valid)``, called after the flush,
-        else from ``generator`` (default: seeded 0)."""
-        self.flush()
-        q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
-        scfg = self.search_config(top_k, beam)
-        coarse = None
-        if scfg.seed_mode == "coarse":
-            coarse = self._ensure_coarse()
-            if coarse is None:  # nothing alive to derive from
-                scfg = dataclasses.replace(scfg, seed_mode="random")
-        seeds = coarse_seeds = None
-        if seed_fn is not None:
-            out = seed_fn(q.shape[0], self.graph.n_valid)
-            seeds, coarse_seeds = out if isinstance(out, tuple) else (out, None)
-        elif generator is None:
-            generator = self._generator(0)
-        return search_lib.search(
-            self.graph, self.items, q, scfg, seeds=seeds, coarse_seeds=coarse_seeds,
-            generator=generator, coarse=coarse, enc=self._ensure_enc(), device=self.device,
-        )
+        else from ``generator`` (default: seeded 0).  The call is the
+        ``index/search`` span, and the search's own spans nest in it."""
+        with (self.tracker or NOOP).span("index/search"):
+            self.flush()
+            q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+            scfg = self.search_config(top_k, beam)
+            coarse = None
+            if scfg.seed_mode == "coarse":
+                coarse = self._ensure_coarse()
+                if coarse is None:  # nothing alive to derive from
+                    scfg = dataclasses.replace(scfg, seed_mode="random")
+            seeds = coarse_seeds = None
+            if seed_fn is not None:
+                out = seed_fn(q.shape[0], self.graph.n_valid)
+                seeds, coarse_seeds = out if isinstance(out, tuple) else (out, None)
+            elif generator is None:
+                generator = self._generator(0)
+            return search_lib.search(
+                self.graph, self.items, q, scfg, seeds=seeds, coarse_seeds=coarse_seeds,
+                generator=generator, coarse=coarse, enc=self._ensure_enc(), device=self.device,
+                tracker=self.tracker,
+            )
 
     # -- persistence ---------------------------------------------------------
 

@@ -100,8 +100,8 @@ def count_expansions(x: torch.Tensor, cfg: construct.BuildConfig) -> dict:
            for k in ("fresh", "valid", "inserted")}
     saved = (search_lib.step, ops.expand_step)
 
-    def step(g, x_, q, st, cfg_, enc=None):
-        new = saved[0](g, x_, q, st, cfg_, enc)
+    def step(g, x_, q, st, cfg_, enc=None, **kw):
+        new = saved[0](g, x_, q, st, cfg_, enc, **kw)
         dev["fresh"] += (new.n_comps - st.n_comps).sum()
         dev["inserted"] += (new.fill - st.fill).sum()
         return new

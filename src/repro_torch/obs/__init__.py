@@ -4,7 +4,7 @@
 One ``Tracker`` protocol (``log_metrics`` + ``span``), three
 implementations (``NoopTracker``/``InMemoryTracker``/``JsonlTracker``), and
 the ``SearchStats`` aggregator that folds per-query search signals into
-scanning rate / hash saturation / comps histograms at host sync points.
+comps per query, scanning rate and hash saturation at host sync points.
 """
 
 from repro_torch.obs.stats import SearchStats
@@ -16,7 +16,6 @@ from repro_torch.obs.tracker import (
     Span,
     Tracker,
     load_events,
-    span_tree,
 )
 
 __all__ = [
@@ -28,5 +27,4 @@ __all__ = [
     "SearchStats",
     "NOOP",
     "load_events",
-    "span_tree",
 ]

@@ -5,9 +5,7 @@ Every ``SearchResult`` carries exact per-lane accounting — ``n_comps``,
 ``hash_full``, ``n_iters`` and ``converged``.  ``SearchStats`` is the
 host-side aggregator: fed results at existing sync boundaries, it keeps
 
-  * total/mean comparisons per query and a power-of-two **histogram** of
-    comps/query (bucket b counts queries with n_comps in [2^b, 2^{b+1})),
-    from which approximate p50/p99 comps fall out;
+  * total/mean/max comparisons per query;
   * the serving **scanning rate** — Eq. 2 extended to reads: mean distance
     evaluations per query over the live catalog size;
   * the **hash-saturation ratio** — share of queries whose ``hash_full``
@@ -27,8 +25,6 @@ import numpy as np
 import torch
 
 __all__ = ["SearchStats"]
-
-_N_BUCKETS = 32  # comps/query < 2^32 by construction (int32 counters)
 
 
 def _host(a) -> np.ndarray:
@@ -51,7 +47,6 @@ class SearchStats:
         self.hash_full_queries = 0
         self.capped_queries = 0  # stopped by max_iters, not convergence
         self.max_comps = 0
-        self.hist = np.zeros(_N_BUCKETS, np.int64)
         # sum over queries of (live catalog size at serve time): the scanning
         # rate denominator under churn is the mean catalog each query saw
         self._n_items_weighted = 0
@@ -76,11 +71,6 @@ class SearchStats:
         self.capped_queries += int(np.count_nonzero(~conv))
         if B:
             self.max_comps = max(self.max_comps, int(comps.max()))
-        # pow2 bucket index: floor(log2(c)) with c=0 landing in bucket 0
-        b = np.zeros_like(comps)
-        pos = comps > 0
-        b[pos] = np.floor(np.log2(comps[pos])).astype(np.int64)
-        np.add.at(self.hist, np.clip(b, 0, _N_BUCKETS - 1), 1)
         if n_live is not None:
             self._n_items_weighted += B * int(n_live)
         return self
@@ -93,7 +83,6 @@ class SearchStats:
         self.hash_full_queries += other.hash_full_queries
         self.capped_queries += other.capped_queries
         self.max_comps = max(self.max_comps, other.max_comps)
-        self.hist += other.hist
         self._n_items_weighted += other._n_items_weighted
         return self
 
@@ -122,30 +111,6 @@ class SearchStats:
     @property
     def capped_ratio(self) -> float:
         return self.capped_queries / max(self.n_queries, 1)
-
-    def comps_percentile(self, pct: float) -> float:
-        """Approximate percentile of comps/query from the pow2 histogram
-        (upper bucket edge at the crossing — a <=2x overestimate, consistent
-        across runs; exact percentiles would need per-query retention)."""
-        if self.n_queries == 0:
-            return 0.0
-        target = self.n_queries * (pct / 100.0)
-        cum = np.cumsum(self.hist)
-        b = int(np.searchsorted(cum, target, side="left"))
-        b = min(b, _N_BUCKETS - 1)
-        return float(min(2.0 ** (b + 1), self.max_comps or 2.0 ** (b + 1)))
-
-    def as_metrics(self, prefix: str = "search") -> dict:
-        """Flat host-scalar dict for ``Tracker.log_metrics``."""
-        return {
-            f"{prefix}/n_queries": self.n_queries,
-            f"{prefix}/comps_per_query": self.comps_per_query,
-            f"{prefix}/comps_p50": self.comps_percentile(50),
-            f"{prefix}/comps_p99": self.comps_percentile(99),
-            f"{prefix}/scanning_rate": self.scanning_rate,
-            f"{prefix}/hash_saturation_ratio": self.hash_saturation_ratio,
-            f"{prefix}/capped_ratio": self.capped_ratio,
-        }
 
     def __repr__(self) -> str:
         return (

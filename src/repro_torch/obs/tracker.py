@@ -6,7 +6,8 @@ A tiny protocol with three implementations:
   * ``NoopTracker``     — the default everywhere; never syncs;
   * ``InMemoryTracker`` — events held in a list (tests, notebooks);
   * ``JsonlTracker``    — append-only event log on disk, one JSON object per
-    line, flushed per event so a crash loses at most the line being written.
+    line; a span tree's events are written when its depth-0 span closes, so
+    no span's duration holds the log's own cost.
 
 Two event kinds flow through a tracker:
 
@@ -22,10 +23,16 @@ Two event kinds flow through a tracker:
     the span ``synced``.  Under ``NoopTracker`` ``sync`` never blocks:
     telemetry off removes every sync it introduced.
 
-Spans nest; each span event carries its ``depth`` and ``parent``, so the
-JSONL round-trips back into a tree.  Trackers only read host scalars and
-timestamps, so results with a tracker attached are bit-identical to results
-without one.
+Spans nest; each span event carries its ``depth``, its ``parent``'s name,
+an integer ``id``, its ``parent_id`` (None at depth 0) and the ``root`` id
+of its depth-0 span, so the JSONL round-trips back into a tree and the
+spans of one call share an identifier.  While a real tracker's span is
+open it also holds a profiler range of the same name
+(``torch._C._profiler._RecordFunctionFast``), so under a running
+``torch.profiler`` the span and the kernels launched inside it sit on one
+timeline; without a profiler the range records nothing.  Trackers only read
+host scalars and timestamps, so results with a tracker attached are
+bit-identical to results without one.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Iterator, List, Mapping, Optional
+from typing import List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -45,7 +52,6 @@ __all__ = [
     "InMemoryTracker",
     "JsonlTracker",
     "load_events",
-    "span_tree",
 ]
 
 
@@ -81,13 +87,15 @@ class Span:
     tensor (so the elapsed time covers the card's work) and returns the tree
     unchanged, letting call sites write ``res = sp.sync(res)``."""
 
-    __slots__ = ("name", "t0", "synced", "_tracker")
+    __slots__ = ("name", "id", "parent_id", "root", "t0", "synced")
 
-    def __init__(self, name: str, tracker: "Tracker"):
+    def __init__(self, name: str, span_id: int, parent: Optional["Span"]):
         self.name = name
+        self.id = span_id
+        self.parent_id = None if parent is None else parent.id
+        self.root = span_id if parent is None else parent.root
         self.t0 = time.perf_counter()
         self.synced = False
-        self._tracker = tracker
 
     def sync(self, tree):
         if _holds_cuda(tree):
@@ -131,7 +139,8 @@ class Tracker:
     """
 
     def __init__(self):
-        self._stack: List[str] = []
+        self._stack: List[Span] = []
+        self._next_id = 1
         self._t_origin = time.perf_counter()
 
     # -- subclass surface ----------------------------------------------------
@@ -155,7 +164,7 @@ class Tracker:
         if step is not None:
             ev["step"] = int(step)
         if self._stack:
-            ev["span"] = self._stack[-1]
+            ev["span"] = self._stack[-1].name
         self._emit(ev)
 
     def span(self, name: str):
@@ -169,39 +178,59 @@ class Tracker:
 
     # -- internals shared with _SpanCtx --------------------------------------
 
+    def _open_span(self, name: str) -> Span:
+        sp = Span(name, self._next_id, self._stack[-1] if self._stack else None)
+        self._next_id += 1
+        self._stack.append(sp)
+        return sp
+
     def _close_span(self, sp: Span) -> None:
+        """Take ``sp`` off the stack, then emit its event: an event emitted
+        with an empty stack closes a tree."""
+        dur = time.perf_counter() - sp.t0
         depth = len(self._stack) - 1
+        parent = self._stack[depth - 1].name if depth > 0 else None
+        self._stack.pop()
         ev = {
             "event": "span",
             "name": sp.name,
+            "id": sp.id,
+            "parent_id": sp.parent_id,
+            "root": sp.root,
             "t": sp.t0 - self._t_origin,
-            "dur_s": time.perf_counter() - sp.t0,
+            "dur_s": dur,
             "depth": depth,
             "synced": sp.synced,
         }
-        if depth > 0:
-            ev["parent"] = self._stack[depth - 1]
+        if parent is not None:
+            ev["parent"] = parent
         self._emit(ev)
 
 
 class _SpanCtx:
-    __slots__ = ("_tracker", "_name", "_span")
+    """A real tracker's span and, around it, a profiler range of the same
+    name: the range is entered first and left last, so on a profiler's
+    timeline it holds every operator and launch the span times."""
+
+    __slots__ = ("_tracker", "_name", "_span", "_range")
 
     def __init__(self, tracker: Tracker, name: str):
         self._tracker = tracker
         self._name = name
         self._span: Optional[Span] = None
+        self._range = None
 
     def __enter__(self) -> Span:
-        self._tracker._stack.append(self._name)
-        self._span = Span(self._name, self._tracker)
+        self._range = torch._C._profiler._RecordFunctionFast(self._name)
+        self._range.__enter__()
+        self._span = self._tracker._open_span(self._name)
         return self._span
 
     def __exit__(self, exc_type, exc, tb):
         try:
             self._tracker._close_span(self._span)
         finally:
-            self._tracker._stack.pop()
+            self._range.__exit__(exc_type, exc, tb)
         return False
 
 
@@ -269,11 +298,16 @@ class InMemoryTracker(Tracker):
 class JsonlTracker(Tracker):
     """Append-only on-disk event log: one JSON object per line.
 
-    Crash-safety contract: the file is opened in append mode and flushed
-    (+ fsync'd on ``finish``) per event, so an interrupted run loses at most
-    its final partially-written line — and ``load_events`` skips lines that
-    fail to parse, so a log with a torn tail still round-trips every
-    complete event.  Multiple runs may append to one file; each tracker
+    Crash-safety contract: the file is opened in append mode (fsync'd on
+    ``finish``).  An event emitted with no span open is written and flushed
+    at once; the events of a span tree are held in memory and written in
+    emission order, in one write, when its depth-0 span closes.  So the
+    serialization runs outside every span of the tree (a span's duration
+    holds no JSON encoding of its children), and an interrupted run loses
+    at most the events of the tree it was inside and a partially-written
+    line — ``load_events`` skips lines that fail to parse, so a log with a
+    torn tail still round-trips every complete event.  Multiple runs may
+    append to one file; each tracker
     writes a ``run`` header event at open (the torch and CUDA versions, the
     card's name, and the caller's run metadata), so readers can split the
     log into runs.
@@ -284,6 +318,7 @@ class JsonlTracker(Tracker):
         self.path = path
         d = os.path.dirname(os.path.abspath(path))
         os.makedirs(d, exist_ok=True)
+        self._pending: List[dict] = []  # the open tree's events
         self._f = open(path, "a", encoding="utf-8")
         header = {
             "event": "run",
@@ -304,12 +339,18 @@ class JsonlTracker(Tracker):
     def _emit(self, event: dict) -> None:
         if self._f is None:
             return  # post-finish emit: drop rather than crash the host loop
-        self._f.write(json.dumps(event, sort_keys=True) + "\n")
+        self._pending.append(event)
+        if not self._stack:
+            self._write()
+
+    def _write(self) -> None:
+        self._f.write("".join(json.dumps(e, sort_keys=True) + "\n" for e in self._pending))
         self._f.flush()
+        self._pending.clear()
 
     def finish(self) -> None:
         if self._f is not None:
-            self._f.flush()
+            self._write()
             os.fsync(self._f.fileno())
             self._f.close()
             self._f = None
@@ -340,14 +381,3 @@ def load_events(path: str) -> List[dict]:
             if isinstance(ev, dict):
                 events.append(ev)
     return events
-
-
-def span_tree(events: List[dict]) -> Iterator[str]:
-    """Render span events as an indented tree (depth-stamped at emit time);
-    a quick human view of a JSONL log."""
-    for e in events:
-        if e.get("event") != "span":
-            continue
-        pad = "  " * int(e.get("depth", 0))
-        sync = "" if e.get("synced") else "  [dispatch-only]"
-        yield f"{pad}{e['name']}: {e['dur_s'] * 1e3:.2f}ms{sync}"

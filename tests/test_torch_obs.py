@@ -1,8 +1,9 @@
-"""Port telemetry (``repro_torch.obs``): the span machinery, the JSONL log,
-``SearchStats`` (value-equal to the reference's on the same inputs), and
-results unchanged by a tracker: builds and the serving loop give the same
-bits with telemetry on and off, and ``NoopTracker`` spans never wait for
-the card."""
+"""Port telemetry (``repro_torch.obs``): the span machinery (ids, and the
+profiler range each real span holds), the JSONL log, ``SearchStats``
+(value-equal to the reference's on the same inputs), and results unchanged
+by a tracker: builds, searches and the serving loop give the same bits with
+telemetry on and off, and neither ``NoopTracker`` nor the search's and the
+exact tiles' spans wait for the card."""
 
 import json
 
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from repro.obs import SearchStats as JSearchStats
-from repro_torch.core import construct
+from repro_torch.core import brute, construct
 from repro_torch.index import OnlineIndex
 from repro_torch.obs import (
     NOOP,
@@ -20,7 +21,6 @@ from repro_torch.obs import (
     NoopTracker,
     SearchStats,
     load_events,
-    span_tree,
     tracker as tracker_lib,
 )
 from repro_torch.serve.loop import ServeLoopConfig, ServingLoop
@@ -121,12 +121,20 @@ def test_jsonl_round_trip_and_header(tmp_path):
 
 
 def test_jsonl_crash_safety(tmp_path):
-    """Flushed per event, appended across runs, a torn tail skipped, a late
-    emit dropped, every line one JSON object."""
+    """An event outside every span on disk at once, a span tree's events on
+    disk in emission order once its depth-0 span closes, appended across
+    runs, a torn tail skipped, a late emit dropped, every line one JSON
+    object."""
     p = str(tmp_path / "live.jsonl")
     trk = JsonlTracker(p, run_meta={"run": 0})
     trk.log_metrics({"early": 1})
     assert [e["event"] for e in load_events(p)] == ["run", "metrics"]
+    with trk.span("root"):
+        with trk.span("child"):
+            trk.log_metrics({"inner": 1})
+        assert len(load_events(p)) == 2
+    assert [(e["event"], e.get("name")) for e in load_events(p)[2:]] == [
+        ("metrics", None), ("span", "child"), ("span", "root")]
     trk.finish()
     trk.log_metrics({"late": 1})
     trk = JsonlTracker(p, run_meta={"run": 1})
@@ -136,21 +144,114 @@ def test_jsonl_crash_safety(tmp_path):
     with open(p, "a", encoding="utf-8") as f:
         f.write('{"event": "metrics", "metrics": {"to')
     evs = load_events(p)
-    assert [e["event"] for e in evs] == ["run", "metrics", "run", "span"]
+    assert [e["event"] for e in evs] == ["run", "metrics", "metrics", "span", "span", "run", "span"]
     assert [e["meta"]["run"] for e in evs if e["event"] == "run"] == [0, 1]
     with open(p, encoding="utf-8") as f:
         lines = f.read().splitlines()[:-1]
     assert all(isinstance(json.loads(line), dict) for line in lines)
 
 
-def test_span_tree_renders_nesting():
+def test_jsonl_writes_a_raising_tree_and_an_open_tree_on_finish(tmp_path):
+    """A tree whose body raises is written when its root unwinds; ``finish``
+    inside an open span writes what that tree emitted so far."""
+    p = str(tmp_path / "unwind.jsonl")
+    trk = JsonlTracker(p)
+    with pytest.raises(RuntimeError):
+        with trk.span("boom"):
+            with trk.span("inner"):
+                raise RuntimeError("x")
+    assert [e.get("name") for e in load_events(p)] == [None, "inner", "boom"]
+    with trk.span("open"):
+        with trk.span("done"):
+            pass
+        trk.finish()
+    assert [e.get("name") for e in load_events(p)][3:] == ["done"]
+
+
+def test_span_ids_parents_and_roots():
+    """Ids in the order spans open; each child names its parent's id, and
+    every span of a tree its depth-0 span's id."""
     trk = InMemoryTracker()
-    with trk.span("outer"):
-        with trk.span("inner") as sp:
-            sp.synced = True
-    lines = list(span_tree(trk.events))
-    assert lines[0].startswith("  inner:") and "[dispatch-only]" not in lines[0]
-    assert lines[1].startswith("outer:") and "[dispatch-only]" in lines[1]
+    for _ in range(2):
+        with trk.span("call"):
+            with trk.span("step"):
+                with trk.span("phase"):
+                    pass
+            with trk.span("step"):
+                pass
+    by_id = {e["id"]: e for e in trk.span_events}
+    assert sorted(by_id) == list(range(1, 9))
+    calls = [e for e in trk.span_events if e["name"] == "call"]
+    assert [c["id"] for c in calls] == [1, 5]
+    for c in calls:
+        assert c["parent_id"] is None and c["root"] == c["id"] and "parent" not in c
+    for e in trk.span_events:
+        if e["depth"]:
+            parent = by_id[e["parent_id"]]
+            assert parent["name"] == e["parent"] and parent["depth"] == e["depth"] - 1
+            assert parent["id"] < e["id"] and e["root"] == parent["root"]
+            assert parent["t"] <= e["t"] and e["t"] + e["dur_s"] <= parent["t"] + parent["dur_s"]
+    assert [len([e for e in trk.span_events if e["root"] == r]) for r in (1, 5)] == [4, 4]
+
+
+def _timeline(tmp_path, fn):
+    """``fn()`` under a CPU profiler; the exported chrome trace's complete
+    events."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+
+
+def test_span_holds_its_operators_on_a_profiler_timeline(tmp_path):
+    """A real tracker's span is a range of the same name on the profiler's
+    timeline, with the operators it ran inside its interval; a no-op span
+    leaves nothing there."""
+    x = torch.arange(64.0)
+    trk = InMemoryTracker()
+
+    def traced():
+        with trk.span("outer/call"):
+            with trk.span("inner/op"):
+                (x * 2).sum()
+
+    events = _timeline(tmp_path, traced)
+    ranges = {e["name"]: e for e in events if e["name"] in ("outer/call", "inner/op")}
+    assert set(ranges) == {"outer/call", "inner/op"}
+    outer, inner = ranges["outer/call"], ranges["inner/op"]
+    assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    ops = [e for e in events if e["name"] in ("aten::mul", "aten::sum")]
+    assert {e["name"] for e in ops} == {"aten::mul", "aten::sum"}
+    for e in ops:
+        assert inner["ts"] <= e["ts"] and e["ts"] + e["dur"] <= inner["ts"] + inner["dur"]
+
+    def untraced():
+        with NOOP.span("noop/call"):
+            (x * 2).sum()
+
+    assert not [e for e in _timeline(tmp_path, untraced) if e["name"] == "noop/call"]
+
+
+def test_search_and_tile_spans_never_wait(no_sync):
+    """An index search and an exact search with a tracker attached: every
+    span of both, and none of them synchronizes."""
+    idx = OnlineIndex.build(_items(), construct.BuildConfig(k=6, wave=64),
+                            generator=torch.Generator().manual_seed(1), device="cpu")
+    q = _items(12, seed=5)
+    want = idx.search(q, 5)
+    trk = InMemoryTracker()
+    idx.tracker = trk
+    got = idx.search(q, 5)
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.n_comps, want.n_comps)
+    ids, dists = brute.brute_force_knn(idx.items, q, 5, tile=64, device="cpu", tracker=trk)
+    names = {e["name"] for e in trk.span_events}
+    assert names == {"index/search", "search/init", "search/done_read", "search/step",
+                     "search/select", "search/expand", "search/update", "brute/tile",
+                     "brute/pairwise", "brute/topk"}
+    assert not any(e["synced"] for e in trk.span_events)
+    root = trk.spans("index/search")[0]
+    assert all(e["root"] == root["id"] for e in trk.span_events if e["name"].startswith("search/"))
 
 
 class _Res:
@@ -177,17 +278,18 @@ def test_search_stats_equal_the_reference(batches):
     for comps, full, iters, conv, n in batches:
         got.update(_Res(comps, full, iters, conv, True), n_items=n)
         want.update(_Res(comps, full, iters, conv, False), n_items=n)
-    for name in ("n_queries", "total_comps", "total_iters", "hash_full_queries",
-                 "capped_queries", "max_comps", "_n_items_weighted"):
-        assert getattr(got, name) == getattr(want, name), name
-    np.testing.assert_array_equal(got.hist, want.hist)
-    assert got.as_metrics("s") == want.as_metrics("s")
-    for pct in (25, 50, 99):
-        assert got.comps_percentile(pct) == want.comps_percentile(pct)
+    _assert_stats_equal(got, want)
     got.merge(got), want.merge(want)
-    assert got.as_metrics() == want.as_metrics()
+    _assert_stats_equal(got, want)
     got.reset()
-    assert got.n_queries == 0 and got.default_n_items == 50 and not got.hist.any()
+    assert got.n_queries == 0 and got.default_n_items == 50 and got.max_comps == 0
+
+
+def _assert_stats_equal(got, want):
+    for name in ("n_queries", "total_comps", "total_iters", "hash_full_queries",
+                 "capped_queries", "max_comps", "_n_items_weighted", "comps_per_query",
+                 "scanning_rate", "hash_saturation_ratio", "capped_ratio"):
+        assert getattr(got, name) == getattr(want, name), name
 
 
 def _items(n=192, d=8, seed=0):

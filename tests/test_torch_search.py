@@ -17,7 +17,9 @@ from repro.core import brute as jbrute
 from repro.core import graph as jgraph
 from repro.core import search as jsearch
 from repro_torch import convert
+from repro_torch.core import brute as tbrute
 from repro_torch.core import search as tsearch
+from repro_torch.obs import InMemoryTracker
 
 torch.set_num_threads(2)
 
@@ -88,7 +90,8 @@ def test_init_state_matches(data, built, H):
 )
 def test_single_steps_match(data, built, flags):
     """Three chained EHC iterations: candidate selection (λ mask, reverse
-    edges, alive/range masks, row dedupe) and the expansion step."""
+    edges, alive/range masks, row dedupe) and the expansion step; with a
+    tracker the step gives the same state."""
     jcfg, tcfg = _cfgs(**flags)
     q = data[200:208]
     key = jax.random.PRNGKey(6)
@@ -104,8 +107,13 @@ def test_single_steps_match(data, built, flags):
         tc, _ = tsearch._prepare_expansion(g_t, tst, tcfg)
         np.testing.assert_array_equal(tc.numpy(), np.asarray(j_prepare(jst)), err_msg=f"iter {it} cands")
         jst = j_step(jst)
+        traced = tsearch.step(g_t, torch.from_numpy(data), torch.from_numpy(q),
+                              tst._replace(vis_ids=tst.vis_ids.clone(),
+                                           vis_dist=tst.vis_dist.clone()),
+                              tcfg, tracker=InMemoryTracker())
         tst = tsearch.step(g_t, torch.from_numpy(data), torch.from_numpy(q), tst, tcfg)
         _assert_state_equal(tst, jst, STATE + ("n_iters", "done"), f"iter {it}")
+        _assert_state_equal(traced, tst, STATE + ("n_iters", "done"), f"traced iter {it}")
 
 
 @pytest.mark.parametrize("metric,H", [("l2", 256), ("ip", 64), ("l1", 128)])
@@ -163,3 +171,55 @@ def test_auto_hash_slots_and_config_checks():
         tsearch.SearchConfig(k=20, beam=10)
     with pytest.raises(ValueError):
         tsearch.SearchConfig(hash_slots=1000)
+
+
+def _children(trk, parent, names):
+    """Each span named in ``names`` under one of the ``parent`` spans: the
+    parent's id for each, in order, and every child's root is its parent's."""
+    by_id = {e["id"]: e for e in trk.spans(parent)}
+    out = []
+    for name in names:
+        kids = trk.spans(name)
+        assert all(by_id[c["parent_id"]]["root"] == c["root"] for c in kids), name
+        out.append(sorted(c["parent_id"] for c in kids))
+    return sorted(by_id), out
+
+
+@pytest.mark.parametrize("max_iters", [20, 3], ids=["converged", "capped"])
+def test_search_with_a_tracker_is_bit_identical_and_spans_each_iteration(data, built, max_iters):
+    """The same bits with a tracker; one ``search/step`` a trip of the loop
+    (the slowest lane's ``n_iters``), one ``done`` read more when every lane
+    converged, and each step's three phases under it."""
+    tcfg = _cfgs(use_lgd_mask=True, max_iters=max_iters)[1]
+    g_t, x, q = tp.to_torch_graph(built), torch.from_numpy(data), torch.from_numpy(data[::20] + 1.0)
+    plain = tsearch.search(g_t, x, q, tcfg, generator=torch.Generator().manual_seed(4), device="cpu")
+    trk = InMemoryTracker()
+    got = tsearch.search(g_t, x, q, tcfg, generator=torch.Generator().manual_seed(4), device="cpu",
+                         tracker=trk)
+    for name in ("ids", "dists", "n_comps", "n_iters", "hash_full", "converged"):
+        assert torch.equal(getattr(got, name), getattr(plain, name)), name
+    converged = bool(got.converged.all())
+    assert converged == (max_iters == 20)
+    n = int(got.n_iters.max())
+    assert len(trk.spans("search/step")) == n
+    assert len(trk.spans("search/done_read")) == n + converged
+    (init,) = trk.spans("search/init")
+    assert init["depth"] == 0 and init["root"] == init["id"]
+    steps, kids = _children(trk, "search/step", ("search/select", "search/expand", "search/update"))
+    assert kids == [steps] * 3
+    assert all(e["depth"] == 0 for e in trk.spans("search/step") + trk.spans("search/done_read"))
+
+
+@pytest.mark.parametrize("tile", [96, 400, 8192])
+def test_brute_force_with_a_tracker_is_bit_identical_and_spans_each_tile(data, tile):
+    """The same bits with a tracker; ``ceil(n / tile)`` tiles, each with one
+    pairwise and one top-k child."""
+    x, q = torch.from_numpy(data), torch.from_numpy(data[:12] + 1.0)
+    want = tbrute.brute_force_knn(x, q, K, n_valid=350, tile=tile, device="cpu")
+    trk = InMemoryTracker()
+    got = tbrute.brute_force_knn(x, q, K, n_valid=350, tile=tile, device="cpu", tracker=trk)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert len(trk.spans("brute/tile")) == -(-N // min(tile, N))
+    tiles, kids = _children(trk, "brute/tile", ("brute/pairwise", "brute/topk"))
+    assert kids == [tiles] * 2
+    assert all(e["root"] == e["id"] for e in trk.spans("brute/tile"))
