@@ -6,11 +6,14 @@
 needs one NVIDIA card and runs, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. builds the five hand-written kernel sources from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together: nine kernels, the fp32,
-   bf16 and int8 forms of ``gather_distance`` and ``fused_expand`` and the
+2. builds the six hand-written kernel sources from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all started together: ten kernels, the fp32,
+   bf16 and int8 forms of ``gather_distance`` and ``fused_expand``, the
    fp32 and the two bf16-operand forms of ``pairwise_distance``, SIMT and
-   tensor-core) and holds each kernel against its plain
+   tensor-core, and ``tile_topk``, the brute tile's running top-k, which
+   is held bit for bit and timed at the exact cell's, the recall audit's
+   and a router request's tile beside ``torch.topk`` on an int64 key) and
+   holds each kernel against its plain
    PyTorch version on the card: at a small shape for each of the five
    metrics and at the main path's shapes, distances to ``rtol=1e-5,
    atol=1e-3`` on Gaussian data and bit for bit on integer-valued data
@@ -436,6 +439,8 @@ KERNELS = {
     "pairwise_distance.bf16_wgmma": ("src/repro_torch/csrc/distance_wgmma.cu",
                                      "src/repro/kernels/distance.py:223 (bf16 operands, l2/ip on the "
                                      "MXU bodies :41, :70)"),
+    "tile_topk": ("src/repro_torch/csrc/tile_topk.cu",
+                  "none (the brute tile's running top-k, lax.top_k in the reference)"),
 }
 
 
@@ -906,6 +911,7 @@ class Smoke:
                 self.time_pairwise(xq, xq, sqq, prefix="")
                 self.time_pairwise(xqb, xqb, sqb, prefix="")
                 self.time_pairwise(x[::100][:10_000].contiguous(), x[:8192], sq[:8192])
+                self.tile_topk_shapes(x)
                 # the data_bf16 build's own bf16 shapes: phase 3's intra-wave
                 # tile (W=1024, d=32) and the knn-lgd build's seed graph
                 # (its 256 first rows, one brute tile)
@@ -1158,6 +1164,69 @@ class Smoke:
                        cdist_ms=cdist_ms, shape=shape, **extra)
             for key in (name, "pairwise_distance.bf16_wgmma") if wgmma else (name,):
                 self.rec[key].update({prefix + k: v for k, v in rec.items()})
+
+    def tile_topk_shapes(self, x):
+        """The running top-k of a brute tile at the exact cell's shape
+        (10,000 queries, 8,192-row tiles, k=10), the recall audit's (96,
+        k=10) and a router request's (4, k=20), on the pairwise kernel's own
+        distances over clustered rows: three chained tiles held against the
+        plain version bit for bit (ids and distance bits), then the kernel
+        timed on the first tile (from the empty best) and on the third (from
+        the running best of two), the plain version, and ``torch.topk`` on
+        the int64 key ``(sort_key(d) << 32) | column`` of the concatenation,
+        the library yardstick (checked against plain, never called by the
+        port), beside the bound: the tile read once, the best read and
+        written once."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+
+        n = x.shape[0]
+        rows = torch.randperm(n, generator=self.gen(61), device=self.dev)
+        T = 8192
+        tiles = [x[rows[i * T:(i + 1) * T]] for i in range(3)]
+
+        def library(dt, best_d, best_i, lo):
+            m, k = best_d.shape
+            cat_d = torch.cat([best_d, dt], dim=1)
+            cat_i = torch.cat([best_i, (lo + torch.arange(T, dtype=torch.int32, device=self.dev))
+                               .expand(m, T)], dim=1)
+            col = torch.arange(k + T, dtype=torch.int64, device=self.dev)
+            key = (ref.sort_key(cat_d).long() << 32) | col
+            order = torch.topk(key, k, dim=1, largest=False, sorted=True).indices
+            return torch.gather(cat_d, 1, order), torch.gather(cat_i, 1, order)
+
+        for m, k, what, prefix in ((10_000, 10, "exact cell's tile", ""),
+                                   (96, 10, "audit tile", "audit_"),
+                                   (REQUEST, 20, "router brute tile", "router_")):
+            q = x[rows[-m:]]
+            dts = [self.ops.pairwise_distance(q, xt, "l2") for xt in tiles]
+            empty = (torch.full((m, k), float("inf"), device=self.dev),
+                     torch.full((m, k), -1, dtype=torch.int32, device=self.dev))
+            got = want = empty
+            for t, dt in enumerate(dts):
+                before = self.ops.launch_counts()["tile_topk"]
+                got = self.ops.tile_topk(dt, *got, t * T, n)
+                check(self.ops.launch_counts()["tile_topk"] == before + 1,
+                      f"tile_topk {what}: not launched")
+                want = ref.tile_topk(dt, *want, t * T, n)
+                check(torch.equal(got[1], want[1])
+                      and torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+                      f"tile_topk {what} tile {t}: not bit-identical to plain")
+            run = ref.tile_topk(dts[1], *ref.tile_topk(dts[0], *empty, 0, n), T, n)
+            lib = library(dts[2], *run, 2 * T)
+            check(torch.equal(lib[1], want[1]) and torch.equal(lib[0], want[0]),
+                  f"tile_topk {what}: the torch.topk yardstick differs from plain")
+            first_ms = self.profile.time_ms([lambda: self.ops.tile_topk(dts[0], *empty, 0, n)] * 22)
+            ms = self.profile.time_ms([lambda: self.ops.tile_topk(dts[2], *run, 2 * T, n)] * 22)
+            plain_ms = self.profile.time_ms([lambda: ref.tile_topk(dts[2], *run, 2 * T, n)] * 8)
+            lib_ms = self.profile.time_ms([lambda: library(dts[2], *run, 2 * T)] * 8)
+            b, how = self.profile.bound_ms(m * T * 4 + 2 * m * k * 8, 0)
+            print(f"tile_topk m={m} T={T} k={k} ({what}): kernel {ms:.6f} ms (first tile "
+                  f"{first_ms:.6f} ms), plain {plain_ms:.6f} ms, torch.topk on the int64 key "
+                  f"{lib_ms:.6f} ms, bound {b:.6f} ms ({how})", flush=True)
+            self.rec["tile_topk"].update({prefix + key: v for key, v in dict(
+                ms=ms, first_ms=first_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                bound_by=how, shape=f"m={m} T={T} k={k}").items()})
 
     def check_bf16_pair(self, q, x, metric, xn, *, exact, what):
         """The bf16-operand pairwise kernel against its plain version
@@ -1428,17 +1497,17 @@ class Smoke:
         from repro_torch.kernels import expand, ref
 
         ops = self.ops
-        saved = (ops.pairwise_distance, ops.gather_distance, ops.expand_step)
+        saved = (ops.pairwise_distance, ops.gather_distance, ops.expand_step, ops.tile_topk)
 
         def expand_step(*args, hash_probes=8, rerank_keep=0, **kw):
             return expand.expand_reference(*args, probes=hash_probes, **kw)
 
-        ops.pairwise_distance, ops.gather_distance, ops.expand_step = (
-            ref.pairwise_distance, ref.gather_distance, expand_step)
+        ops.pairwise_distance, ops.gather_distance, ops.expand_step, ops.tile_topk = (
+            ref.pairwise_distance, ref.gather_distance, expand_step, ref.tile_topk)
         try:
             yield
         finally:
-            ops.pairwise_distance, ops.gather_distance, ops.expand_step = saved
+            ops.pairwise_distance, ops.gather_distance, ops.expand_step, ops.tile_topk = saved
 
     def phase_build_parity(self):
         torch = self.torch
@@ -1688,7 +1757,7 @@ class Smoke:
         n = x.shape[0]
         cfg = knn_lgd.full_config()
         g, stats, t_build, peak = self.counted_build(
-            cfg, ("gather_distance", "fused_expand", "pairwise_distance"))
+            cfg, ("gather_distance", "fused_expand", "pairwise_distance", "tile_topk"))
         t1 = time.perf_counter()
         rows = torch.arange(0, n, max(1, n // 10_000), device=self.dev)[:10_000]
         truth, _ = brute.brute_force_knn(x, x[rows], 10, "l2", exclude_ids=rows.int(),
@@ -3944,9 +4013,9 @@ class Smoke:
             # shape, and the large-C shape
             rec.update({k: v for k, v in r.items()
                         if k in ("warm_ms", "floor_ms", "index_select_ms", "simt_ms",
-                                 "widened_mm_ms", "max_rel_fp32")
+                                 "widened_mm_ms", "max_rel_fp32", "first_ms")
                         or k.startswith(("large_c_", "serve_", "merge_", "router_", "mind_",
-                                         "atom_", "tile1024_", "seed_"))})
+                                         "atom_", "tile1024_", "seed_", "audit_"))})
             if name in self.serve_launches:
                 rec["serve_launches"] = self.serve_launches[name]
             for path, counts in self.path_launches.items():

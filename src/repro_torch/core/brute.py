@@ -3,10 +3,10 @@
 Ground truth for recall@k (Eq. 1), the exact seed graph over the first
 |I| = 256 rows (Alg. 2 lines 4-6), and the exhaustive baseline.  The x side
 is walked in tiles with a running top-k, each tile one ``pairwise_distance``
-call, so the (m, n) matrix never materializes.  With a tracker (``obs``)
-each tile is a ``brute/tile`` span with the children ``brute/pairwise``
-(the tile's distances) and ``brute/topk`` (mask, concatenation and the
-running top-k); none of them waits for the card.
+call and one ``tile_topk`` call, so the (m, n) matrix never materializes.
+With a tracker (``obs``) each tile is a ``brute/tile`` span with the
+children ``brute/pairwise`` (the tile's distances) and ``brute/topk`` (the
+masked running top-k); none of them waits for the card.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import graph as graph_lib
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.obs import NOOP
 
 
@@ -56,11 +56,11 @@ def brute_force_knn(
     m = q.shape[0]
     tile = min(tile, n)
     ntiles = -(-n // tile)
-    if n_valid is None:
-        n_valid = n
+    n_valid = n if n_valid is None else int(n_valid)
     best_d = torch.full((m, k), float("inf"), dtype=torch.float32, device=dev)
     best_i = torch.full((m, k), -1, dtype=torch.int32, device=dev)
-    excl = None if exclude_ids is None else exclude_ids.to(dev)[:, None]
+    excl = None if exclude_ids is None else exclude_ids.to(dev, torch.int64)
+    alive = None if alive is None else alive.to(dev)
     trk = tracker or NOOP
     for t in range(ntiles):
         with trk.span("brute/tile"):
@@ -75,19 +75,9 @@ def brute_force_knn(
             with trk.span("brute/pairwise"):
                 dt = ops.pairwise_distance(q, xt, metric, x_sq_norms=xn_t)
             with trk.span("brute/topk"):
-                ids = lo + torch.arange(tile, dtype=torch.int32, device=dev)[None, :]
-                mask = ids < n_valid
-                if alive is not None:
-                    al = alive.to(dev)[lo:lo + tile]
-                    if short:
-                        al = torch.cat([al, al.new_zeros(short)])
-                    mask = mask & al[None, :]
-                if excl is not None:
-                    mask = mask & (ids != excl)
-                dt = torch.where(mask, dt, float("inf"))
-                cat_d = torch.cat([best_d, dt], dim=1)
-                cat_i = torch.cat([best_i, ids.expand(m, tile)], dim=1)
-                best_d, best_i = ref.topk_smallest(cat_d, cat_i, k)
+                best_d, best_i = ops.tile_topk(
+                    dt, best_d, best_i, lo, n_valid,
+                    alive=None if alive is None else alive[lo:lo + tile], exclude_ids=excl)
     return best_i, best_d
 
 

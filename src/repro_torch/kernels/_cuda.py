@@ -42,7 +42,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/kernels — src/repro_torch/kernels/_cuda.py is 4 levels down
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gather_dist", "expand", "distance", "distance_bf16", "distance_wgmma")
+SOURCES = ("gather_dist", "expand", "distance", "distance_bf16", "distance_wgmma", "tile_topk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -57,6 +57,7 @@ LAUNCHES = {
     "gather_distance": 0, "gather_distance.bf16": 0, "gather_distance.int8": 0,
     "fused_expand": 0, "fused_expand.bf16": 0, "fused_expand.int8": 0,
     "pairwise_distance": 0, "pairwise_distance.bf16": 0, "pairwise_distance.bf16_wgmma": 0,
+    "tile_topk": 0,
 }
 
 # candidate-table storage type -> (the kernels' DType code in

@@ -6,8 +6,9 @@ plain PyTorch version; a tensor on a CUDA device takes the hand-written
 kernel, which launches or raises.  There is no engine option and no
 fallback.  The kernels are reached through their registered operators
 (``repro_torch::pairwise_distance``, ``::gather_distance``,
-``::fused_expand``), whose fake forms let the dry run trace them; the dry
-run sends its fake CPU tensors the card's way (``device.card_program``).
+``::fused_expand``, ``::tile_topk``), whose fake forms let the dry run trace
+them; the dry run sends its fake CPU tensors the card's way
+(``device.card_program``).
 Callers in ``repro_torch.core`` reach the kernels only through these
 functions, by module attribute (``ops.expand_step(...)``).  The PQ
 rank-then-rerank composes here, around the exact fp32 expansion.
@@ -32,6 +33,7 @@ from repro_torch.kernels import distance as _distance
 from repro_torch.kernels import expand as _expand
 from repro_torch.kernels import gather_dist as _gather_dist
 from repro_torch.kernels import precision as precision_lib
+from repro_torch.kernels import tile_topk as _tile_topk
 
 
 def launch_counts() -> dict:
@@ -157,6 +159,25 @@ def merge_proposals(
         return (torch.empty((0, width), dtype=torch.int32, device=hit_ids.device),
                 torch.empty((0, width), dtype=torch.float32, device=hit_ids.device), comps)
     return torch.cat(ids), torch.cat(dists), comps
+
+
+def tile_topk(
+    dt: torch.Tensor,
+    best_d: torch.Tensor,
+    best_i: torch.Tensor,
+    lo: int,
+    n_valid: int,
+    *,
+    alive: Optional[torch.Tensor] = None,
+    exclude_ids: Optional[torch.Tensor] = None,
+):
+    """Fold a tile of distances (m, T), ids ``lo ..``, into the running best
+    (m, k): the new (best_d, best_i); see ``ref.tile_topk``.  The kernel
+    equals the plain version bit for bit."""
+    if on_card(dt):
+        return _tile_topk.tile_topk(dt, best_d, best_i, lo, n_valid, alive=alive,
+                                    exclude_ids=exclude_ids)
+    return ref.tile_topk(dt, best_d, best_i, lo, n_valid, alive=alive, exclude_ids=exclude_ids)
 
 
 def topk_smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):

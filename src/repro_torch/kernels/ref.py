@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the three kernels (counterpart of
-``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels (counterpart of
+``repro.kernels.ref``, with ``tile_topk``, the running top-k of an exact
+tile, which the reference leaves to ``lax.top_k``).
 
 These are the CPU execution path and the oracle each CUDA kernel is held
 against on the card.  The gather distance uses the same norms-decomposed
@@ -159,6 +160,39 @@ def sort_key(dists: torch.Tensor) -> torch.Tensor:
     stable ascending sort on these keys reproduces its selection exactly."""
     bits = dists.float().contiguous().view(torch.int32)
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def tile_topk(
+    dt: torch.Tensor,
+    best_d: torch.Tensor,
+    best_i: torch.Tensor,
+    lo: int,
+    n_valid: int,
+    *,
+    alive: Optional[torch.Tensor] = None,
+    exclude_ids: Optional[torch.Tensor] = None,
+):
+    """One tile of ``core.brute``'s running top-k: the tile's distances
+    ``dt`` (m, T) (ids ``lo .. lo + T - 1``) masked to +inf at ids ≥
+    ``n_valid``, where the tile's ``alive`` slice (zero-padded to T) is
+    False and at each row's ``exclude_ids``, then the k smallest of the
+    running best (``best_d``/``best_i``, (m, k)) followed by the tile
+    (``topk_smallest``).  The plain version of ``kernels.tile_topk``."""
+    m, tile = dt.shape
+    k = best_d.shape[1]
+    ids = lo + torch.arange(tile, dtype=torch.int32, device=dt.device)[None, :]
+    mask = ids < n_valid
+    if alive is not None:
+        short = tile - alive.shape[0]
+        if short:
+            alive = torch.cat([alive, alive.new_zeros(short)])
+        mask = mask & alive[None, :]
+    if exclude_ids is not None:
+        mask = mask & (ids != exclude_ids[:, None])
+    dt = torch.where(mask, dt, float("inf"))
+    cat_d = torch.cat([best_d, dt], dim=1)
+    cat_i = torch.cat([best_i, ids.expand(m, tile)], dim=1)
+    return topk_smallest(cat_d, cat_i, k)
 
 
 def topk_smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):

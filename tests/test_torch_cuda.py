@@ -10,7 +10,9 @@ Distances agree to ``rtol=1e-5, atol=1e-3`` on Gaussian data (summation
 order differs); on integer-valued data every output of ``fused_expand``,
 hash included, is bit-identical.  The bf16 and int8 variants are held
 against the compressed plain version the same way: bit for bit on integer
-data for l2/ip (and l1 at bf16), to tolerance elsewhere.
+data for l2/ip (and l1 at bf16), to tolerance elsewhere.  ``tile_topk``
+copies distances and never computes one, so it equals its plain version bit
+for bit on every input: ids and distance bits.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 from repro_torch.core import brute, construct
 from repro_torch.kernels import distance, expand, gather_dist, ops, ref
 from repro_torch.kernels import precision as precision_lib
+from repro_torch.kernels import tile_topk as tile_topk_lib
 
 torch.set_num_threads(2)
 
@@ -320,6 +323,9 @@ def test_build_kernels_match_plain_and_count_launches(card, monkeypatch):
     brute.brute_force_knn(x, x[:50], 10, device=card)
     counts = ops.launch_counts()
     assert all(counts[name] > 0 for name in fp32_kernels), counts
+    # one running top-k a brute tile: the exact seed graph's one tile and the
+    # 3,000 rows' one tile
+    assert counts["tile_topk"] == 2, counts
     _route_plain(monkeypatch)
     g_p, st_p = construct.build(x, cfg, seed_fn=seed_fn, device=card)
     for name in ("nbr_ids", "nbr_dist", "nbr_lam", "rev_ids", "rev_lam", "rev_ptr", "alive"):
@@ -336,6 +342,7 @@ def _route_plain(monkeypatch):
     monkeypatch.setattr(ops, "pairwise_distance", ref.pairwise_distance)
     monkeypatch.setattr(ops, "gather_distance", ref.gather_distance)
     monkeypatch.setattr(ops, "expand_step", expand_step)
+    monkeypatch.setattr(ops, "tile_topk", ref.tile_topk)
 
 
 def _exact(metric, precision):
@@ -975,6 +982,11 @@ def test_registered_ops_pass_opcheck(card):
     torch.library.opcheck(distance.PAIRWISE_OP, (q, x, sq, "l2"))
     torch.library.opcheck(gather_dist.GATHER_OP, (q, x, idx, sq, None, "l2"))
     torch.library.opcheck(expand.EXPAND_OP, (q, x, idx, *beam, *hashes, sq, None, "l2", 8))
+    dt = ops.pairwise_distance(q, x)
+    best = (beam[1].contiguous(), beam[0].contiguous())
+    alive = torch.rand(x.shape[0] - 3, device=card) < 0.7
+    torch.library.opcheck(tile_topk_lib.TILE_TOPK_OP,
+                          (dt, *best, alive, idx[:, 0].long(), 40, x.shape[0] + 20))
 
 
 def test_launch_counts_count_through_the_registered_ops(card):
@@ -983,5 +995,104 @@ def test_launch_counts_count_through_the_registered_ops(card):
     ops.pairwise_distance(q, x)
     ops.gather_distance(q, x, idx)
     ops.expand_step(q, x, idx, *beam, *hashes)
+    ops.tile_topk(ops.pairwise_distance(q, x), beam[1], beam[0], 0, x.shape[0])
     counts = ops.launch_counts()
-    assert counts["pairwise_distance"] == counts["gather_distance"] == counts["fused_expand"] == 1
+    assert counts["pairwise_distance"] == 2
+    assert counts["gather_distance"] == counts["fused_expand"] == counts["tile_topk"] == 1
+
+
+# ---------------------------------------------------------------- tile_topk
+# k from one to the kernel's largest (each list length, 32 and 33 on either
+# side of the insertion form), rows from one to the exact cell's 10,000
+TOPK_K = [1, 8, 10, 20, 32, 33, 64, 1024]
+TOPK_M = [1, 4, 96, 10_000]
+TOPK_CASES = ["ties", "specials", "masks", "short", "few"]
+SPECIAL_BITS = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000,
+                         0xFFC00000, 0x3F800000, 0xBF800000], dtype=np.uint32)
+
+
+def _tile_steps(case, m, k, dev):
+    """Two chained tiles of one case: [(dt, lo, n_valid, alive slice,
+    exclude_ids)].  ``ties``: small integers at T = 1,024 (every row 16-byte
+    aligned); ``specials``: integers mixed with ±0.0, ±inf and NaN of both
+    signs at T = 1,030 (rows alternately aligned, with a 2-column tail), the
+    second tile a view one float off alignment (the 4-byte path); ``masks``:
+    ``n_valid`` inside the second tile, ``alive`` and ``exclude_ids``;
+    ``short``: a short second tile; ``few``: 3 valid candidates."""
+    rng = np.random.RandomState(len(case) * 1000 + k + m)
+    T = 1030 if case == "specials" else 1024
+    n = 2 * T - (100 if case == "short" else 0)
+    a = rng.randint(0, 4, (2, m, T)).astype(np.float32)
+    if case == "specials":
+        pick = rng.rand(2, m, T) < 0.3
+        a = np.where(pick, SPECIAL_BITS[rng.randint(0, 8, (2, m, T))].view(np.float32), a)
+    tiles = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n_valid = {"masks": T + 300, "few": 3}.get(case, n)
+    alive = (torch.from_numpy(rng.rand(n) < 0.6).to(dev)
+             if case in ("masks", "short") else None)
+    excl = (torch.from_numpy(rng.randint(0, n, m)).to(dev)
+            if case == "masks" else None)
+    steps = []
+    for t in range(2):
+        dt = tiles[t]
+        if case == "specials" and t == 1:
+            flat = torch.empty(m * T + 1, device=dev)
+            flat[1:] = dt.reshape(-1)
+            dt = flat[1:].view(m, T)
+        lo = t * T
+        steps.append((dt, lo, n_valid, None if alive is None else alive[lo:lo + T], excl))
+    return steps
+
+
+@pytest.mark.parametrize("m", TOPK_M)
+@pytest.mark.parametrize("k", TOPK_K)
+def test_tile_topk_bit_identical_to_plain(card, k, m):
+    """Every case over two chained tiles: ids and distance bits equal the
+    plain version's, one launch a tile."""
+    for case in TOPK_CASES:
+        got = want = (torch.full((m, k), float("inf"), device=card),
+                      torch.full((m, k), -1, dtype=torch.int32, device=card))
+        for t, (dt, lo, n_valid, alive, excl) in enumerate(_tile_steps(case, m, k, card)):
+            before = ops.launch_counts()["tile_topk"]
+            got = ops.tile_topk(dt, *got, lo, n_valid, alive=alive, exclude_ids=excl)
+            assert ops.launch_counts()["tile_topk"] == before + 1
+            want = ref.tile_topk(dt, *want, lo, n_valid, alive=alive, exclude_ids=excl)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], want[1]), f"{case} tile {t}: ids"
+            assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), \
+                f"{case} tile {t}: distance bits"
+        if case == "few" and k > 3:
+            assert bool((got[1][:, 3:] == -1).all())
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine", "l2-masked"])
+def test_brute_force_knn_through_tile_topk_matches_plain(card, metric, monkeypatch):
+    """20,000 rows in three tiles (the last short): the kernel route equals
+    the plain route bit for bit, one ``tile_topk`` launch a tile."""
+    masked = metric == "l2-masked"
+    metric = metric.removesuffix("-masked")
+    x = _data((20_000, 32), 21, metric, False, card)
+    q = _data((300, 32), 22, metric, False, card)
+    kw = {}
+    if masked:
+        rng = np.random.RandomState(23)
+        kw = dict(exclude_ids=torch.from_numpy(rng.randint(0, 20_000, 300)).int().to(card),
+                  alive=torch.from_numpy(rng.rand(20_000) < 0.8).to(card), n_valid=19_000)
+    ops.reset_launch_counts()
+    got_i, got_d = brute.brute_force_knn(x, q, 20 if masked else 10, metric, device=card, **kw)
+    assert ops.launch_counts()["tile_topk"] == 3
+    monkeypatch.setattr(ops, "tile_topk", ref.tile_topk)
+    want_i, want_d = brute.brute_force_knn(x, q, 20 if masked else 10, metric, device=card, **kw)
+    assert ops.launch_counts()["tile_topk"] == 3
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+
+
+def test_tile_topk_refuses_k_above_its_largest(card):
+    k = tile_topk_lib.MAX_K + 1
+    dt = _data((4, 64), 24, "l2", False, card)
+    before = ops.launch_counts()["tile_topk"]
+    with pytest.raises(ValueError, match=f"k={k}"):
+        ops.tile_topk(dt, torch.full((4, k), float("inf"), device=card),
+                      torch.full((4, k), -1, dtype=torch.int32, device=card), 0, 64)
+    assert ops.launch_counts()["tile_topk"] == before

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import brute, construct, search
-from repro_torch.kernels import _cuda, distance, expand, gather_dist, ops
+from repro_torch.kernels import _cuda, distance, expand, gather_dist, ops, tile_topk
 from repro_torch.launch import build_graph
 
 torch.set_num_threads(2)
@@ -165,6 +165,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         gather_dist.gather_distance(x[:4], x8, idx, row_scale=scale)
     with pytest.raises(ValueError, match="CUDA"):
         distance.pairwise_distance(x[:4], x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tile_topk.tile_topk(x[:4], torch.zeros(4, 3), torch.zeros(4, 3, dtype=torch.int32), 0, 8)
     with pytest.raises(ValueError, match="CUDA"):
         expand.fused_expand(
             x[:4], x, idx, idx, torch.zeros(4, 3), torch.zeros(4, 3, dtype=torch.bool),
