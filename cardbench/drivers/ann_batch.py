@@ -24,7 +24,7 @@ import shutil
 
 import torch
 
-from cardbench import data
+from cardbench import data, faults
 from cardbench.reference import checks, exact
 
 
@@ -145,3 +145,25 @@ class AnnBatch:
             "graph_dist_err": checks.dist_err(x, x[self.graph_rows], self.graph_ids,
                                               self.graph_dist, metric),
         }
+
+
+Driver = AnnBatch
+
+
+def plant(fault: str, undo: list) -> None:
+    """Plant ``fault`` under ``OnlineIndex.search``: the EHC step returns its
+    state unchanged, or the search's answers are halved or altered."""
+    import repro_torch.core.search as search
+    from repro_torch.index.lifecycle import OnlineIndex
+
+    if fault == "unchanged_state":
+        faults.swap(search, "step", lambda g, x, q, st, cfg, enc=None: st, undo)
+        return
+    change = faults.halve if fault == "half_batch" else faults.alter
+    real_search = OnlineIndex.search
+
+    def faulty_search(self, *a, **kw):
+        res = real_search(self, *a, **kw)
+        ids, d = change(res.ids, res.dists)
+        return res._replace(ids=ids, dists=d)
+    faults.swap(OnlineIndex, "search", faulty_search, undo)

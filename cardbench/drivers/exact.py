@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from cardbench import data
+from cardbench import data, faults
 from cardbench.reference import checks, exact
 
 
@@ -76,3 +76,24 @@ class Exact:
             gap = max(gap, checks.rank_gap(x, q, ids, truth[kept["block"]], metric))
         return {"bad_answers": bad, "short_answers": short / max(1, answers), "dist_err": err,
                 "rank_gap": gap}
+
+
+Driver = Exact
+
+
+def plant(fault: str, undo: list) -> None:
+    """Plant ``fault`` under ``brute_force_knn``: the running top-k keeps
+    its state (``ops.tile_topk``, which every tile calls), or the answers
+    are halved or altered."""
+    import repro_torch.core.brute as brute
+
+    if fault == "unchanged_state":
+        faults.swap(brute.ops, "tile_topk", lambda dt, best_d, best_i, *a, **kw: (best_d, best_i),
+                    undo)
+        return
+    change = faults.halve if fault == "half_batch" else faults.alter
+    real = brute.brute_force_knn
+
+    def faulty_brute(*a, **kw):
+        return change(*real(*a, **kw))
+    faults.swap(brute, "brute_force_knn", faulty_brute, undo)

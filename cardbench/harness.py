@@ -1,11 +1,29 @@
 """One run of one cell: set-up, a measured window, the check, the result line.
 
-Everything about a cell is found by name: the cell in ``BENCHMARK.json``,
-its configuration's file, its traffic file (``traffic/<name>.json``, whose
-``kind`` picks one of the two general drivers), its limits
-(``limits/<cell>.json``) and each per-layer metric's reader
-(``metrics/<name>.py``).  A later cell or metric is added by adding those
-files and ``BENCHMARK.json`` entries.
+Everything about a cell is found by name under the run's root: the cell in
+``BENCHMARK.json``, its configuration's file, its traffic file
+(``cardbench/traffic/<name>.json``), its limits
+(``cardbench/limits/<cell>.json``), the driver of the traffic's ``kind``
+(``driver``: the module ``cardbench.drivers.<kind>``) and each per-layer
+metric's reader (``cardbench/metrics/<name>.py``).  A later cell, metric or
+kind of traffic is added by adding those files and ``BENCHMARK.json``
+entries.
+
+A driver module holds ``Driver``, built from the run's ``Context`` (whose
+``control`` asks for the program's own next-lower-precision path), and
+``plant(fault, undo)``, which plants one of ``faults.FAULTS`` under the
+driver's timed path and appends to ``undo`` what takes it out again.  A
+``Driver`` has ``setup()`` (rows, program state, queries, warm-up: all of
+set-up), ``call(i)`` (the window's i-th call, ending with its answers on
+the host; returns the queries it answered), ``keep(traced)`` (keeps what
+the last call produced for the check; ``traced`` during the profiled
+calls), ``call_stats()`` (one dict of counters per kept call, for the
+per-layer readers), ``release()`` (frees the program's state once the
+window has closed and the peak memory is read) and ``check()`` (the
+numbers held to the cell's limits, from the reference).  A driver whose
+calls change the index inside the window restores its starting state in
+``setup``, so that every run starts from the same rows, and its check
+judges each kept answer against the rows live at that call.
 
 The window runs ``--seconds`` of back-to-back calls (a closed loop with one
 caller), each timed on the host from submit to its ids on the host.  With
@@ -31,12 +49,9 @@ from pathlib import Path
 import torch
 
 from cardbench import devtrace
-from cardbench.drivers.ann_batch import AnnBatch
-from cardbench.drivers.exact import Exact
 from cardbench.reference import checks
 
 HERE = Path(__file__).resolve().parent
-DRIVERS = {"ann_batch": AnnBatch, "exact": Exact}
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "benchmarks")
 
 
@@ -79,6 +94,29 @@ def config(root: Path, bench: dict, name: str) -> dict:
     raise NoResult(f"no config {name!r} in BENCHMARK.json")
 
 
+def load_traffic(root: Path, w: dict) -> dict:
+    return load_json(root / "cardbench" / "traffic" / f"{w['traffic']}.json")
+
+
+def driver_module(kind: str):
+    """The module ``cardbench.drivers.<kind>``, which holds the kind's
+    ``Driver`` and ``plant``."""
+    name = f"cardbench.drivers.{kind}"
+    if not kind.isidentifier():
+        raise NoResult(f"no driver for traffic kind {kind!r}: {name} is no module's name")
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as exc:
+        if exc.name != name:
+            raise
+        raise NoResult(f"no driver for traffic kind {kind!r}: no module {name}") from None
+
+
+def driver(kind: str):
+    """The ``Driver`` class of traffic of kind ``kind``."""
+    return driver_module(kind).Driver
+
+
 def applies(metric: dict, workload: str, reported=()) -> bool:
     """Whether ``metric`` is reported in ``workload``: listed there, or,
     without a ``workloads`` key, in every cell that reports what it moves."""
@@ -111,8 +149,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, root: Path, t_
     bench = spec(root)
     w = cell(bench, workload)
     cfg = config(root, bench, w["config"])
-    traffic = load_json(HERE / "traffic" / f"{w['traffic']}.json")
-    limits = load_json(HERE / "limits" / f"{workload}.json")
+    traffic = load_traffic(root, w)
+    limits = load_json(root / "cardbench" / "limits" / f"{workload}.json")
     if shrink is not None:
         cfg, traffic = shrink(cfg, traffic)
     dev = torch.device(device)
@@ -125,8 +163,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, root: Path, t_
         _cuda.build()
     ctx = Context(workload, cfg, traffic, int(seed), dev, root / "build" / "cardbench",
                   code_hash(root, dict(cfg, control=control)), control)
-    driver = DRIVERS[traffic["kind"]](ctx)
-    driver.setup()
+    drv = driver(traffic["kind"])(ctx)
+    drv.setup()
 
     def sync():
         if on_card:
@@ -146,10 +184,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, root: Path, t_
     def one(shapes=False):
         nonlocal answered, i
         c0 = time.perf_counter()
-        answered += driver.call(i)
+        answered += drv.call(i)
         c1 = time.perf_counter()
         lat.append(c1 - c0)
-        driver.keep(shapes)
+        drv.keep(shapes)
         i += 1
         return c0, c1
 
@@ -185,11 +223,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, root: Path, t_
     window_s = time.perf_counter() - t0
     sync()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
-    stats = driver.call_stats()
-    driver.release()
+    stats = drv.call_stats()
+    drv.release()
     gc.collect()
     t_check = time.perf_counter()
-    values = driver.check()
+    values = drv.check()
     print(f"cardbench: {len(lat)} calls in {window_s:.3f} s; the reference's check took "
           f"{time.perf_counter() - t_check:.3f} s", file=sys.stderr)
     correct, judged = checks.judge(values, limits["checks"])

@@ -1,6 +1,6 @@
 """Percent of the traced exact calls' device time spent outside the
-pairwise tile: the running top-k (mask, concatenation, stable sort,
-gathers) and the copies."""
+pairwise tile: the running top-k (``tile_topk``, one launch a tile), the
+fills of the empty best, the last tile's zero padding and the copies."""
 
 
 def read(rec):

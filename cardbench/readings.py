@@ -9,9 +9,10 @@ The control is the program's own next-lower-precision path: its bf16
 distance engine for the EHC search (``BuildConfig.precision="bf16"``), bf16
 rows and queries for the exact search (the bf16 pairwise kernel).  Each
 ``--fault-seeds`` seed is read once under each fault of ``faults.FAULTS``,
-planted under the timed path at the cell's own size; run the program's
-seeds first, so that the fault never reaches a build.  Each reading is one
-JSON line.  The benchmark's own runs never run the control or a fault.
+planted under the timed path at the cell's own size by the driver of the
+cell's traffic kind; run the program's seeds first, so that the fault never
+reaches a build.  Each reading is one JSON line.  The benchmark's own runs
+never run the control or a fault.
 """
 
 import argparse
@@ -40,8 +41,9 @@ def main(argv=None) -> int:
     plan = [(s, False, None) for s in seeds(args.seeds)]
     plan += [(s, True, None) for s in seeds(args.control_seeds)]
     plan += [(s, False, f) for f in faults.FAULTS for s in seeds(args.fault_seeds)]
+    kind = harness.load_traffic(ROOT, harness.cell(harness.spec(ROOT), args.workload))["kind"]
     for seed, control, fault in plan:
-        remove = faults.plant(fault, "exact" in args.workload) if fault else None
+        remove = faults.plant(fault, kind) if fault else None
         try:
             t = time.perf_counter()
             res = harness.run(args.workload, seed, args.seconds, False, root=ROOT, t_start=t,

@@ -156,14 +156,13 @@ def run(workload: str, seed: int, *, root: Path = ROOT, calls: int = 10, out_dir
     import torch
 
     from cardbench import harness
-    from cardbench.drivers.ann_batch import AnnBatch
     from repro_torch.core.brute import brute_force_knn
     from repro_torch.obs import InMemoryTracker
 
     bench = harness.spec(root)
     w = harness.cell(bench, workload)
     cfg = harness.config(root, bench, w["config"])
-    traffic = harness.load_json(harness.HERE / "traffic" / f"{w['traffic']}.json")
+    traffic = harness.load_traffic(root, w)
     if shrink is not None:
         cfg, traffic = shrink(cfg, traffic)
     dev = torch.device(device)
@@ -176,7 +175,10 @@ def run(workload: str, seed: int, *, root: Path = ROOT, calls: int = 10, out_dir
         _cuda.build()
     ctx = harness.Context(workload, cfg, traffic, int(seed), dev, root / "build" / "cardbench",
                           harness.code_hash(root, dict(cfg, control=False)))
-    driver = harness.DRIVERS[traffic["kind"]](ctx)
+    kind = traffic["kind"]
+    if kind not in ("ann_batch", "exact"):
+        raise harness.NoResult(f"spans.py attaches no tracker to traffic of kind {kind!r}")
+    driver = harness.driver(kind)(ctx)
     driver.setup()
 
     def sync():
@@ -185,7 +187,7 @@ def run(workload: str, seed: int, *, root: Path = ROOT, calls: int = 10, out_dir
 
     def call(i, tracker):
         """One call of the window's kind; the ids reach the host."""
-        if isinstance(driver, AnnBatch):
+        if kind == "ann_batch":
             driver.index.tracker = tracker
             driver.call(i)
         elif tracker is None:

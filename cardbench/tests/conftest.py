@@ -31,9 +31,11 @@ def shrink(cfg, traffic):
 
 @pytest.fixture
 def bench_root(tmp_path):
-    """A run root holding ``BENCHMARK.json`` and the configurations."""
+    """A run root holding ``BENCHMARK.json`` and the data files: the
+    configurations, traffic and limits."""
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    shutil.copytree(ROOT / "cardbench" / "configs", tmp_path / "cardbench" / "configs")
+    for d in ("configs", "traffic", "limits"):
+        shutil.copytree(ROOT / "cardbench" / d, tmp_path / "cardbench" / d)
     return tmp_path
 
 
@@ -49,3 +51,10 @@ def run_tiny(bench_root):
 
 def spec():
     return json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def kind(cell):
+    """The kind of a cell's traffic, read from its traffic file."""
+    from cardbench import harness
+
+    return harness.load_traffic(ROOT, harness.cell(spec(), cell))["kind"]

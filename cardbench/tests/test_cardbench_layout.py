@@ -68,7 +68,8 @@ def test_cell_files_load_by_name(cell):
     cfg = harness.config(ROOT, b, w["config"])
     assert cfg["reduced"] == [] and cfg["assumed"]
     traffic = json.loads((ROOT / "cardbench" / "traffic" / f"{w['traffic']}.json").read_text())
-    assert traffic["kind"] in harness.DRIVERS
+    mod = harness.driver_module(traffic["kind"])
+    assert harness.driver(traffic["kind"]) is mod.Driver and callable(mod.plant)
     limits = json.loads((ROOT / "cardbench" / "limits" / f"{cell}.json").read_text())
     assert limits["checks"]
     for m in b["end_to_end"]:
